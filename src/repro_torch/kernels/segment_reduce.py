@@ -1,0 +1,174 @@
+"""segment_reduce — one SLTF reduce window (§III-B(b)), written by hand for
+Hopper.
+
+Reduces the innermost ragged dimension of a barrier-delimited stream with a
+carried accumulator: data tokens fold into the open group; Ω1 emits the
+group's value (``init`` for an empty group — the [[]] vs [] distinction of
+§III-A); Ωn>1 emits the trailing group when it is open, then the lowered
+barrier Ω(n-1).  The semantics are ``core/backend.py::
+segment_reduce_window_np``'s, bit for bit, for every reduce op of the IR
+(add, min, max, and, or, xor), with or without values, and for any carried
+``(acc, group_open)``.
+
+On a CUDA tensor :func:`segment_reduce` launches ``csrc/segment_reduce.cu``
+(which replaces the TPU kernel ``repro/kernels/segment_reduce.py::
+_segred_kernel``) and packs its two slots per barrier with the
+``stream_compact`` kernel; on a CPU tensor it runs
+:func:`segment_reduce_plain`.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .stream_compact import stream_compact, stream_compact_plain
+
+NOTHING = -1                      # "no token" slot marker
+OPS = ("add", "min", "max", "and", "or", "xor")   # kernel op codes 0..5
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_MAX_TOKENS = (1 << 30) - 1       # 2 slots per token, counted in int32
+
+
+def _check(kinds, vals, op) -> None:
+    if op not in OPS:
+        raise NotImplementedError(f"segment_reduce: unknown op {op!r}")
+    if kinds.dtype != torch.int32 or kinds.dim() != 1:
+        raise TypeError("segment_reduce: kinds must be int32 [N], got "
+                        f"{kinds.dtype} {tuple(kinds.shape)}")
+    if not kinds.is_contiguous():
+        raise ValueError("segment_reduce: kinds must be contiguous")
+    if kinds.shape[0] > _MAX_TOKENS:
+        raise ValueError(f"segment_reduce: {kinds.shape[0]} tokens exceed the "
+                         f"kernel's int32 slot counts ({_MAX_TOKENS})")
+    if vals is not None:
+        if vals.dtype != torch.int32 or vals.shape != kinds.shape:
+            raise TypeError("segment_reduce: vals must be int32 like kinds, "
+                            f"got {vals.dtype} {tuple(vals.shape)}")
+        if vals.device != kinds.device or not vals.is_contiguous():
+            raise ValueError("segment_reduce: vals must be contiguous and "
+                             "on the device of kinds")
+
+
+def _fold(op: str, g: torch.Tensor, seg: torch.Tensor, v: torch.Tensor
+          ) -> torch.Tensor:
+    """Fold int64 values ``v`` into ``g[seg]`` with ``op`` (int64, values in
+    the signed 32-bit range; the caller wraps ``add``)."""
+    if op == "add":
+        return g.index_add_(0, seg, v)
+    if op in ("min", "max"):
+        return g.scatter_reduce_(0, seg, v, "amin" if op == "min" else "amax")
+    # bitwise ops: per-bit planes, since torch has no scatter and/or/xor
+    shifts = torch.arange(32, device=g.device)
+    gb = ((g & 0xFFFFFFFF)[:, None] >> shifts) & 1
+    vb = ((v & 0xFFFFFFFF)[:, None] >> shifts) & 1
+    idx = seg[:, None].expand(-1, 32)
+    if op == "and":
+        gb.scatter_reduce_(0, idx, vb, "amin")
+    elif op == "or":
+        gb.scatter_reduce_(0, idx, vb, "amax")
+    else:
+        gb.index_add_(0, seg, vb)
+        gb &= 1
+    u = (gb << shifts).sum(1)
+    return torch.where(u > _I32_MAX, u - (1 << 32), u)
+
+
+def segment_reduce_plain(kinds: torch.Tensor, vals: torch.Tensor | None,
+                         init: int = 0, op: str = "add",
+                         acc: int | None = None, group_open: bool = False):
+    """Plain torch version of the kernel, on any device; same returns as
+    :func:`segment_reduce`."""
+    _check(kinds, vals, op)
+    acc = init if acc is None else acc
+    dev, n = kinds.device, kinds.shape[0]
+    k = kinds.long()
+    is_bar = k > 0
+    seg = torch.cumsum(is_bar.long(), 0) - is_bar.long()
+    nbar = int(is_bar.sum())
+    data = ~is_bar
+    has = torch.zeros(nbar + 1, dtype=torch.bool, device=dev)
+    has[seg[data]] = True
+    has[0] |= bool(group_open)
+    bk = k[is_bar]                                # barrier levels, in order
+    emit = (bk == 1) | has[:nbar]
+    emitted_before = torch.zeros(nbar + 1, dtype=torch.bool, device=dev)
+    emitted_before[1:] = torch.cumsum(emit.long(), 0) > 0
+    g = torch.where(emitted_before, torch.tensor(init, device=dev),
+                    torch.tensor(acc, device=dev)).long()
+    if vals is not None:
+        g = _fold(op, g, seg[data], vals.long()[data])
+    g = ((g - _I32_MIN) & 0xFFFFFFFF) + _I32_MIN
+    slot_k = torch.full((n, 2), NOTHING, dtype=torch.int64, device=dev)
+    slot_v = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    slot_k[:nbar, 0] = torch.where(emit, 0, NOTHING)
+    slot_v[:nbar, 0] = torch.where(emit, g[:nbar], 0)
+    slot_k[:nbar, 1] = torch.where(bk > 1, bk - 1, NOTHING)
+    rows = torch.stack([slot_k.reshape(-1), slot_v.reshape(-1)], 1)
+    out, count = stream_compact_plain(
+        (rows[:, 0] != NOTHING).int(), rows.int().contiguous())
+    carry = torch.stack([g[nbar], has[nbar].long()]).int()
+    return out[:, 0], out[:, 1], count, carry
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("segment_reduce")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.segment_reduce_launch.argtypes = (
+        [p, p, ctypes.c_longlong, i, i, i, i] + [p] * 10)
+    lib.segment_reduce_launch.restype = ctypes.c_int
+    lib.segment_reduce_tile_rows.restype = ctypes.c_int
+    return lib
+
+
+def _i32(x: int) -> int:
+    return ((int(x) - _I32_MIN) & 0xFFFFFFFF) + _I32_MIN
+
+
+def segment_reduce(kinds: torch.Tensor, vals: torch.Tensor | None,
+                   init: int = 0, op: str = "add", acc: int | None = None,
+                   group_open: bool = False):
+    """kinds [N] int32 (0 = data, n > 0 = Ωn), vals [N] int32 or None ->
+    ``(out_kinds [2N], out_vals [2N], count, carry)``.
+
+    The first ``count`` entries of ``out_kinds``/``out_vals`` are the emitted
+    tokens, the rest zeros; ``count`` is a 0-d int32 tensor and ``carry`` an
+    int32 tensor ``[acc, group_open]`` after the window, both on the input's
+    device.  ``acc`` defaults to ``init``.  A CUDA tensor launches the kernel
+    (raising if it cannot), a CPU tensor runs :func:`segment_reduce_plain`.
+    """
+    _check(kinds, vals, op)
+    if kinds.device.type == "cpu":
+        return segment_reduce_plain(kinds, vals, init, op, acc, group_open)
+    if kinds.device.type != "cuda":
+        raise ValueError(f"segment_reduce: unsupported device {kinds.device}")
+    lib = _lib()
+    acc = init if acc is None else acc
+    dev, n = kinds.device, kinds.shape[0]
+    tiles = max(1, -(-n // lib.segment_reduce_tile_rows()))
+    scratch = torch.empty(tiles + 3 * (n + 1) + 2, dtype=torch.int32,
+                          device=dev)
+    tile_bars, seg_val, seg_has, bar_kind, nbar, first_emit = torch.split(
+        scratch, [tiles, n + 1, n + 1, n + 1, 1, 1])
+    slot_keep = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    slot_rows = torch.empty((2 * n, 2), dtype=torch.int32, device=dev)
+    carry = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.segment_reduce_launch(
+            kinds.data_ptr(), 0 if vals is None else vals.data_ptr(), n,
+            OPS.index(op), _i32(init), _i32(acc), int(bool(group_open)),
+            tile_bars.data_ptr(), seg_val.data_ptr(), seg_has.data_ptr(),
+            bar_kind.data_ptr(), nbar.data_ptr(), first_emit.data_ptr(),
+            slot_keep.data_ptr(), slot_rows.data_ptr(), carry.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    segment_reduce.launches += 1
+    _build.check(lib, "segment_reduce", err)
+    out, count = stream_compact(slot_keep, slot_rows)
+    return out[:, 0], out[:, 1], count, carry
+
+
+#: kernel launches so far (CUDA calls only; the plain path does not count)
+segment_reduce.launches = 0

@@ -15,6 +15,11 @@ import types
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def jax_backend():
     """One shared JaxBackend (and jit cache) for every suite that crosses
