@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch port of Revet's dataflow executor on one
-CUDA card and check it end to end.
+"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor and
+the dense-LM serving path) on one CUDA card and check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -20,6 +20,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. serve   — ``DataflowEngine.step_batch`` of 8 requests with distinct seeds
              (strlen, hash_table) against sequential numpy serving, and one
              placed, replicated ``execute_batch``.
+5. attention — the flash and decode attention kernels against their plain
+             versions (float32 2e-5, bfloat16 2e-2) at the LM path's shapes
+             and at large ones, with times beside the bound and
+             ``scaled_dot_product_attention`` as a yardstick.
+6. lm      — full-width qwen2-0.5b (random weights from seed 0) served by
+             ``DecodeEngine`` (default ``impl="kernel"``) on 8 requests
+             (prompts of 16-512 tokens): every prefill layer launches the
+             flash kernel; prefill and teacher-forced decode logits match
+             the plain route (``impl="naive"``) within a bf16 tolerance;
+             the decode kernel runs over the served KV cache of every layer;
+             then ``repro_torch.launch.serve.main`` at the full preset.
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -27,6 +38,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +62,20 @@ BENCH_SIZES = {
     "strlen": dict(n_strings=128, avg_len=32),
 }
 HASH_TABLE_16X = dict(n_lookups=4096, n_slots=16384)
+
+# H100 SXM published peaks (dense): bf16 tensor cores, float32 CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# attention kernels against their plain versions: the tolerances of the
+# reference's kernel tests (sums in another order; bf16 rounds the output)
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+LM_ARCH = "qwen2-0.5b"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 1024, 8, 16
+# bf16 logits of the two attention routes: their attention outputs differ
+# by bf16 rounding, carried through 24 layers, and the logits are rounded
+# to bf16 themselves; allow 8 bf16 steps (2^-7 relative each) at the plain
+# route's largest |logit|
+LM_LOGIT_BF16_STEPS = 8
+LM_PROFILE_STEPS = 8
 
 PATH_LANES = (1, 127, 128, 129, 512)
 LARGE_N = 1 << 24
@@ -322,7 +348,6 @@ def device_busy(name, app, tb) -> dict:
     ``PROFILE_CALLS`` backend calls (the whole run if it is shorter): device
     time of all CUDA kernels and copies against that window's wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
     compiled = lowered.compile(tb)
@@ -345,6 +370,15 @@ def device_busy(name, app, tb) -> dict:
             stop()
     finally:
         tb.stop_at, tb.on_stop = -1, None
+    return {"phase": "apps", "app": name, "profiled_calls": window["calls"],
+            "run_calls": tb.calls - calls0,
+            **device_time(prof, window["wall_s"], name)}
+
+
+def device_time(prof, wall_s: float, what: str) -> dict:
+    """Device time of all CUDA kernels and copies a profile saw, against
+    the profiled wall time, and the six largest items."""
+    from torch.autograd import DeviceType
     device_us = 0.0
     top = []
     for ev in prof.key_averages():
@@ -354,13 +388,10 @@ def device_busy(name, app, tb) -> dict:
                      getattr(ev, "self_cuda_time_total", 0.0))
         device_us += us
         top.append((us, ev.key, ev.count))
-    require(device_us > 0, f"{name}: the profiler saw no device time")
+    require(device_us > 0, f"{what}: the profiler saw no device time")
     top.sort(reverse=True)
-    return {"phase": "apps", "app": name, "profiled_calls": window["calls"],
-            "run_calls": tb.calls - calls0,
-            "profiled_wall_s": window["wall_s"],
-            "device_s": device_us / 1e6,
-            "device_busy_share": device_us / 1e6 / window["wall_s"],
+    return {"profiled_wall_s": wall_s, "device_s": device_us / 1e6,
+            "device_busy_share": device_us / 1e6 / wall_s,
             "top_device": [{"name": k[:60], "us": us, "count": c}
                            for us, k, c in top[:6]]}
 
@@ -469,6 +500,373 @@ def phase_serve(tb):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(rng, bh, sq, skv, d, dtype, dev):
+    import torch
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            "float32")).to(dev, getattr(torch, dtype))
+    return t(bh, sq, d), t(bh, skv, d), t(bh, skv, d)
+
+
+def _attn_err(got, want, dtype, what) -> float:
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[dtype]
+    require(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+            f"{what} differs from its plain version (max |err| {err}, "
+            f"tol {tol})")
+    return err
+
+
+def _bound(flops: float, nbytes: int, dtype: str) -> tuple[float, str]:
+    """The least time for the work: operations at the type's peak or bytes
+    at the memory rate, whichever is larger, and which one it is."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    mem_ms = bytes_ms(nbytes)
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
+def _flash_case(rng, bh, s, dtype, causal, iters, dev, d=64):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(rng, bh, s, s, d, dtype, dev)
+    err = _attn_err(fa.flash_attention(q, k, v, causal),
+                    fa.flash_attention_plain(q, k, v, causal), dtype,
+                    f"flash_attention bh={bh} s={s} {dtype} causal={causal}")
+    pairs = s * (s + 1) // 2 if causal else s * s   # (query, key) pairs seen
+    size = q.element_size()
+    bound, by = _bound(4.0 * bh * pairs * d, 4 * bh * s * d * size, dtype)
+    # yardstick: top-left causal, as the kernel (Sq == Skv here)
+    lib = (q[None], k[None], v[None])
+    return {"bh": bh, "sq": s, "skv": s, "d": d, "dtype": dtype,
+            "causal": causal, "max_abs_err": err,
+            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, causal),
+                                 iters),
+            "plain_ms": time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal), iters),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(*lib,
+                                                       is_causal=causal),
+                iters),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _decode_case(rng, bh, s, dtype, iters, dev, d=64):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    q, _, _ = _attn_inputs(rng, bh, 1, 1, d, dtype, dev)
+    _, k, v = _attn_inputs(rng, bh, 1, s, d, dtype, dev)
+    lens = rng.integers(1, s + 1, bh).astype(np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    err = _attn_err(da.decode_attention(q, k, v, lengths),
+                    da.decode_attention_plain(q, k, v, lengths), dtype,
+                    f"decode_attention bh={bh} s={s} {dtype}")
+    size = q.element_size()
+    keys = int(np.minimum(lens, s).sum())          # what this data needs
+    bound, by = _bound(4.0 * keys * d,
+                       2 * keys * d * size + 2 * bh * d * size + 4 * bh,
+                       dtype)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return {"bh": bh, "s": s, "d": d, "dtype": dtype, "keys": keys,
+            "max_abs_err": err,
+            "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v,
+                                                             lengths), iters),
+            "plain_ms": time_ms(
+                lambda: da.decode_attention_plain(q, k, v, lengths), iters),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], attn_mask=mask), iters),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_attention(dev):
+    """Both attention kernels at the LM path's shapes (qwen2-0.5b: 14 query
+    heads of 64, prompts of 16-512 tokens, a cache of LM_MAX_LEN for
+    LM_SLOTS slots) and at large ones.  Returns the rows for the kernels
+    line."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    flash, decode = [], []
+    for dtype in ("bfloat16", "float32"):
+        for s in (16, 100, 128, 512, 2048):
+            flash.append(_flash_case(rng, 14, s, dtype, True,
+                                     50 if s <= 512 else 10, dev))
+        flash.append(_flash_case(rng, 14, 512, dtype, False, 50, dev))
+        decode.append(_decode_case(rng, LM_SLOTS * 14, LM_MAX_LEN, dtype, 50,
+                                   dev))
+    flash.append(_flash_case(rng, 56, 4096, "bfloat16", True, 3, dev))
+    decode.append(_decode_case(rng, 56, 32768, "bfloat16", 10, dev))
+    torch.cuda.synchronize()
+    for name, rows in (("flash_attention", flash),
+                       ("decode_attention", decode)):
+        for r in rows:
+            emit({"phase": "attention", "kernel": name, **r})
+    return {"flash_attention": {
+                "path": next(r for r in flash if r["sq"] == 512
+                             and r["causal"] and r["dtype"] == "bfloat16"),
+                "large": flash[-1], "max_abs_err": max(
+                    r["max_abs_err"] for r in flash if r["dtype"] ==
+                    "bfloat16")},
+            "decode_attention": {
+                "path": decode[0], "large": decode[-1], "max_abs_err": max(
+                    r["max_abs_err"] for r in decode if r["dtype"] ==
+                    "bfloat16")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width LM serving through DecodeEngine
+# ---------------------------------------------------------------------------
+
+def _lm_launches():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def _reset_all_launches():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    _reset_launches()
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+
+
+def timed_zoo(zoo):
+    """``zoo`` whose prefill and decode_step record their wall time (each
+    ends in a synchronise; the engine syncs there anyway to read tokens)."""
+    import torch
+    from repro_torch.models.zoo import Zoo
+
+    class TimedZoo(Zoo):
+        def prefill(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().prefill(*a, **kw)
+            torch.cuda.synchronize()
+            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def decode_step(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().decode_step(*a, **kw)
+            torch.cuda.synchronize()
+            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    tz = TimedZoo(zoo.cfg, zoo.mod)
+    tz.prefill_ms, tz.decode_ms = [], []
+    return tz
+
+
+def _lm_requests(cfg):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(16, 513, LM_REQUESTS)
+    lens[0] = 512                                  # the longest prompt
+    require(any(n % 128 for n in lens), "a prompt not a multiple of 128")
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab, int(n))
+                    .astype(np.int32), max_new=LM_MAX_NEW)
+            for i, n in enumerate(lens)]
+
+
+def _serve(zoo, params, impl=None):
+    """The 8 requests through ``DecodeEngine`` (its default impl unless
+    given).  Returns (requests, engine, wall seconds)."""
+    import torch
+    from repro_torch.serve.engine import DecodeEngine
+    kw = {} if impl is None else {"impl": impl}
+    eng = DecodeEngine(zoo, params, LM_SLOTS, LM_MAX_LEN, **kw)
+    reqs = _lm_requests(zoo.cfg)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(all(r.done for r in reqs), f"{eng.impl}: a request never ended")
+    return reqs, eng, wall
+
+
+def _teacher_forced(zoo, params, req):
+    """Logits of both routes on one request, both fed the kernel engine's
+    tokens: prefill, then one decode step per generated token."""
+    import torch
+    dev = params["ln_f"]["w"].device
+    out = {}
+    for impl in ("kernel", "naive"):
+        toks = torch.as_tensor(req.prompt, device=dev)[None]
+        lg, cache, pos = zoo.prefill(params, {"tokens": toks}, LM_MAX_LEN,
+                                     impl=impl)
+        steps = [lg[0, -1]]
+        for t in req.tokens[:-1]:
+            tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
+            lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+            steps.append(lg[0, -1])
+        out[impl] = torch.stack(steps).float()[:, :zoo.cfg.vocab]
+    return out["kernel"], out["naive"]
+
+
+def _bf16_steps(n: int, m: float) -> float:
+    """``n`` spacings of bfloat16 (8 significant bits) at magnitude m."""
+    return n * 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def lm_profile(zoo, params, reqs) -> dict:
+    """torch.profiler over one 512-token prefill and LM_PROFILE_STEPS decode
+    steps at batch LM_SLOTS (each step reads its tokens back, as the engine
+    does): device busy share and the largest device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = params["ln_f"]["w"].device
+    cache = zoo.init_cache(LM_SLOTS, LM_MAX_LEN)
+    pos = torch.tensor([len(r.prompt) for r in reqs[:LM_SLOTS]],
+                       dtype=torch.int32, device=dev)
+    tok = torch.tensor([[r.tokens[0]] for r in reqs[:LM_SLOTS]],
+                       dtype=torch.int32, device=dev)
+    prompt = torch.as_tensor(reqs[0].prompt, device=dev)[None]
+
+    def run():
+        nonlocal cache, pos, tok
+        lg, _, _ = zoo.prefill(params, {"tokens": prompt}, LM_MAX_LEN,
+                               impl="kernel")
+        int(lg[0, -1].argmax())
+        for _ in range(LM_PROFILE_STEPS):
+            lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+            tok = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+            tok.cpu()
+
+    run()                                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"phase": "lm", "profile": f"prefill 512 + {LM_PROFILE_STEPS} "
+            f"decode steps at batch {LM_SLOTS}",
+            **device_time(prof, wall, "lm profile")}
+
+
+def phase_lm():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.zoo import get_model
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    zoo = timed_zoo(get_model(cfg))
+    params = zoo.init_params(0)                    # on the card by default
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    require(params["ln_f"]["w"].device.type == "cuda",
+            "init_params did not use the card")
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    reqs, eng, wall = _serve(zoo, params)
+    served = {**_launches(), **_lm_launches()}
+    require(eng.impl == "kernel", f"DecodeEngine's default is {eng.impl}")
+    require(served["flash_attention"] == LM_REQUESTS * cfg.n_layers,
+            f"flash_attention launched {served['flash_attention']} times, "
+            f"want {LM_REQUESTS} x {cfg.n_layers}")
+    # the decode entry point over the served cache of every layer: the
+    # model's decode keeps impl="ref" (as the reference), so the decode
+    # kernel is reached through ops.decode_mha(impl="kernel")
+    rng = __import__("numpy").random.default_rng(SEED + 2)
+    lengths = torch.clamp(eng.position, 1, LM_MAX_LEN)
+    qs = [torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, cfg.n_heads, 1, cfg.hd)).astype("float32")).to(
+        eng.device, torch.bfloat16) for _ in range(cfg.n_layers)]
+    dec_out = [ops.decode_mha(qs[i], eng.cache["k"][i], eng.cache["v"][i],
+                              lengths, impl="kernel")
+               for i in range(cfg.n_layers)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**_launches(), **_lm_launches()}
+    require(launches["decode_attention"] == cfg.n_layers,
+            "decode_mha(impl='kernel') did not launch once per layer")
+    tokens = sum(len(r.tokens) for r in reqs)
+    emit({"phase": "lm", "arch": LM_ARCH, "n_params": zoo.n_params(),
+          "init_s": init_s, "requests": LM_REQUESTS,
+          "prompt_lens": [len(r.prompt) for r in reqs], "tokens": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall, **eng.stats(),
+          "prefill_ms": zoo.prefill_ms, "decode_ms_per_step": zoo.decode_ms,
+          "max_memory_allocated": peak, "launches": launches})
+
+    # -- checks (launches from here on are comparisons, not the path)
+    err = float((dec_out[0].float() - ops.decode_mha(
+        qs[0], eng.cache["k"][0], eng.cache["v"][0], lengths,
+        impl="ref").float()).abs().max())
+    require(err <= ATTN_TOL["bfloat16"] * 2,
+            f"decode_mha kernel vs ref on layer 0's cache: {err}")
+    n_reqs, n_eng, n_wall = _serve(zoo, params, impl="naive")
+    worst, flips, checked = 0.0, [], 0
+    worst_diff, tols = 0.0, []
+    for r, n in zip(reqs, n_reqs):
+        lk, ln = _teacher_forced(zoo, params, r)
+        tol = _bf16_steps(LM_LOGIT_BF16_STEPS, float(ln.abs().max()))
+        diff = float((lk - ln).abs().max())
+        worst, worst_diff = max(worst, diff / tol), max(worst_diff, diff)
+        tols.append(tol)
+        require(diff <= tol, f"rid {r.rid}: logits differ by {diff} "
+                             f"(tol {tol})")
+        top2 = ln.topk(2, -1).values
+        for step, tok in enumerate(r.tokens):
+            checked += 1
+            want = int(ln[step].argmax())
+            if tok != want:
+                margin = float(top2[step, 0] - top2[step, 1])
+                require(margin < tol, f"rid {r.rid} step {step}: token "
+                        f"{tok} vs plain {want}, margin {margin} >= {tol}")
+                flips.append({"rid": r.rid, "step": step, "kernel": tok,
+                              "plain": want, "plain_margin": margin})
+        # the naive engine decodes by itself: equal up to the first flip
+        first = next((i for i, (a, b) in enumerate(zip(r.tokens, n.tokens))
+                      if a != b), None)
+        require(first is None or any(f["rid"] == r.rid and f["step"] <= first
+                                     for f in flips),
+                f"rid {r.rid}: naive engine departs at step {first} with no "
+                "small-margin step before it")
+    for f in flips:
+        emit({"phase": "lm", "small_margin_flip": f})
+    emit({"phase": "lm", "check": "kernel vs naive", "tokens_checked":
+          checked, "flips": len(flips), "max_logit_diff": worst_diff,
+          "logit_tol": [min(tols), max(tols)], "worst_diff_over_tol": worst,
+          "decode_kernel_vs_ref_layer0": err,
+          "naive_tokens_equal": [r.tokens == n.tokens
+                                 for r, n in zip(reqs, n_reqs)],
+          "naive_wall_s": n_wall, **{f"naive_{k}": v
+                                    for k, v in n_eng.stats().items()}})
+
+    emit(lm_profile(zoo, params, reqs))
+
+    # -- the CLI entry point, in process, at the full preset
+    del params, eng, n_eng
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    res = launch_serve.main(["--arch", LM_ARCH, "--preset", "full",
+                             "--requests", "8", "--slots", "4"])
+    cli = _lm_launches()
+    require(cli["flash_attention"] == 8 * cfg.n_layers,
+            f"launch.serve: flash_attention launched {cli}")
+    emit({"phase": "lm", "entry": "repro_torch.launch.serve.main",
+          "seconds": time.perf_counter() - t0, **res, "launches": cli})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = {
     "stream_compact": {
@@ -477,6 +875,12 @@ KERNEL_ROWS = {
     "segment_reduce": {
         "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
         "replaces": "src/repro/kernels/segment_reduce.py:32"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25"},
+    "decode_attention": {
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:22"},
 }
 
 
@@ -503,11 +907,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": ptxas})
 
+    # float32 products in full float32 (the tolerances assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    timings = phase_kernels(dev)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timings = timed("kernels", phase_kernels, dev)
     tb = counting_backend()
-    launches = phase_apps(tb)
-    phase_serve(tb)
+    launches = timed("apps", phase_apps, tb)
+    timed("serve", phase_serve, tb)
+    timings.update(timed("attention", phase_attention, dev))
+    lm = timed("lm", phase_lm)
+    emit({"phase_seconds": seconds,
+          "total_s": time.perf_counter() - t0})
+    launches.update({k: lm[k] for k in ("flash_attention",
+                                        "decode_attention")})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -520,12 +941,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in timings[name].values()),
+            "max_abs_err": timings[name].get("max_abs_err", max(
+                timings[name][k]["max_abs_err"] for k in ("path", "large"))),
             "ms": path["kernel_ms"], "plain_ms": path["plain_ms"],
-            "bound_ms": path["bound_ms"], "bound_by": "bytes",
+            "bound_ms": path["bound_ms"],
+            "bound_by": path.get("bound_by", "bytes"),
             "library_ms": path["library_ms"],
-            "shape": {k: path[k] for k in ("n", "d", "emitted") if k in path},
+            "shape": {k: path[k] for k in ("n", "d", "emitted", "bh", "sq",
+                                           "skv", "s", "dtype", "causal")
+                      if k in path},
             "large": timings[name]["large"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,16 @@
+"""phi3-mini-3.8b — dense RoPE SwiGLU [arXiv:2404.14219; unverified]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192,
+    vocab=32064, mlp_act="swiglu", tie_embeddings=False,
+    source="arXiv:2404.14219; unverified",
+)
+
+
+def reduced() -> ModelConfig:
+    import dataclasses
+    return dataclasses.replace(
+        CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=160,
+        vocab=512)

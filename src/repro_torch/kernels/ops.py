@@ -1,6 +1,7 @@
-"""ops — the VectorVM executor entry points on torch tensors.
+"""ops — the VectorVM executor entry points and the LM attention entry
+points on torch tensors.
 
-These are the hot loops of ``core/vector_vm.py`` behind
+VectorVM windows are the hot loops of ``core/vector_vm.py`` behind
 :class:`~repro_torch.core.backend.TorchBackend` (see DESIGN.md §3).
 Contract: int64 numpy in, int64 numpy out, bit-identical to the
 ``NumpyBackend`` oracle.  Each call moves its window to ``device`` as int32
@@ -15,12 +16,23 @@ and the results patched; ``torch.remainder`` floors where the IR truncates
 (``torch.fmod`` is right); shifts by 32 or more are not masked by torch;
 there is no full uint32 arithmetic, so unsigned ops run in int64 on
 ``a & 0xFFFFFFFF``.
+
+Attention (the reference's ``kernels/ops.py:582-859``, forward only):
+``mha`` and ``decode_mha`` with GQA, the grouped full-softmax reference
+``_grouped_ref``, and the chunked flash-style paths.  The reference's
+``impl="pallas"`` route is ``impl="kernel"`` here: it launches the
+hand-written ``flash_attention`` / ``decode_attention`` kernels on a CUDA
+tensor and runs their plain torch versions on a CPU tensor.  ``"chunked"``
+and ``"ref"`` keep their meaning.  The flash backwards come with training.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import ref as _ref
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
 from .segment_reduce import segment_reduce
 from .stream_compact import stream_compact
 
@@ -196,3 +208,174 @@ def vm_first_mismatch(ref, others, device="cpu") -> int:
     mism = (stack[1:] != stack[:1]).any(0)
     first = torch.where(mism.any(), torch.argmax(mism.to(torch.int32)), n)
     return int(first)
+
+
+# ---- attention ----
+
+ATTENTION_IMPLS = ("kernel", "chunked", "ref")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} (have "
+                         f"{ATTENTION_IMPLS}; the reference's 'pallas' route "
+                         "is 'kernel' here)")
+
+
+def _match_heads(k: torch.Tensor, hq: int) -> torch.Tensor:
+    """Repeat each kv head ``hq // hkv`` times (``jnp.repeat`` on axis 1)."""
+    hkv = k.shape[1]
+    return k if hkv == hq else k.repeat_interleave(hq // hkv, dim=1)
+
+
+def mha(q, k, v, causal: bool = True, impl: str = "kernel",
+        flat: bool = False):
+    """Multi-head attention with GQA. q [B, Hq, S, D], k/v [B, Hkv, S, D].
+
+    ``"kernel"`` (or ``flat``) folds heads into the batch, with kv heads
+    repeated to match q's, for the flat kernel call; ``"chunked"`` and
+    ``"ref"`` run grouped 5-D attention (q viewed as [B, Hkv, G, S, D], kv
+    never repeated)."""
+    _check_impl(impl)
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    if impl == "kernel" or flat:
+        k, v = _match_heads(k, hq), _match_heads(v, hq)
+        qf = q.reshape(b * hq, sq, d).contiguous()
+        kf = k.reshape(b * hq, -1, d).contiguous()
+        vf = v.reshape(b * hq, -1, d).contiguous()
+        if impl == "kernel":
+            out = flash_attention(qf, kf, vf, causal=causal)
+        elif impl == "chunked":
+            out = chunked_attention(qf, kf, vf, causal=causal)
+        else:
+            out = _ref.attention_ref(qf, kf, vf, causal=causal)
+        return out.reshape(b, hq, sq, d)
+    qg = q.reshape(b, hkv, hq // hkv, sq, d)
+    if impl == "chunked":
+        out = grouped_chunked_attention(qg, k, v, causal=causal)
+    else:
+        out = _grouped_ref(qg, k, v, causal)
+    return out.reshape(b, hq, sq, d)
+
+
+def _grouped_ref(qg, k, v, causal, lengths=None):
+    """Full-softmax grouped attention. qg [B,Hkv,G,Sq,D]; k/v [B,Hkv,S,D].
+    The causal mask is bottom-right aligned (``tril(k=Skv-Sq)``)."""
+    d = qg.shape[-1]
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) / d ** 0.5
+    sq, sk = sc.shape[-2], sc.shape[-1]
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=sc.device).tril(sk - sq)
+        sc = torch.where(mask, sc, -1e30)
+    if lengths is not None:
+        kidx = torch.arange(sk, device=sc.device)
+        sc = torch.where(kidx < lengths[:, None, None, None, None], sc, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()).to(qg.dtype)
+
+
+def _pick_block(skv: int, block_k: int) -> int:
+    block_k = min(block_k, skv)
+    while skv % block_k:
+        block_k -= 1          # largest divisor <= requested (worst case 1)
+    return block_k
+
+
+def _causal_bias(jb: int, block_k: int, sq: int, skv: int, device):
+    """Additive [Sq, block_k] mask of KV block ``jb``, bottom-right
+    aligned: query i sees keys up to ``i + Skv - Sq``."""
+    kk = jb * block_k + torch.arange(block_k, device=device)
+    qi = torch.arange(sq, device=device)
+    return torch.where(kk[None, :] <= qi[:, None] + (skv - sq), 0.0, -1e30)
+
+
+def _chunk_attn_fwd_impl(q, k, v, causal, block_k):
+    """Online softmax over KV blocks. q [BH,Sq,D], k/v [BH,Skv,D] ->
+    (out in q's dtype, lse [BH,Sq,1])."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    block_k = _pick_block(skv, block_k)
+    qf = q.float()
+    scale = 1.0 / (d ** 0.5)
+    m = torch.full((bh, sq, 1), -1e30, device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    for jb in range(skv // block_k):
+        ks = k[:, jb * block_k:(jb + 1) * block_k].float()
+        vs = v[:, jb * block_k:(jb + 1) * block_k].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, ks) * scale
+        if causal:
+            s = s + _causal_bias(jb, block_k, sq, skv, q.device)[None]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p, vs)
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out, m + torch.log(l.clamp_min(1e-30))
+
+
+def chunked_attention(q, k, v, causal: bool = True, block_k: int = 512):
+    """Flash attention in plain torch: a loop over KV blocks with an online
+    softmax, O(Sq * block_k) memory.  q [BH, Sq, D], k/v [BH, Skv, D];
+    bottom-right causal mask.  Forward only (the flash backward comes with
+    training)."""
+    return _chunk_attn_fwd_impl(q, k, v, causal, block_k)[0]
+
+
+def _gchunk_fwd_impl(qg, k, v, causal, block_k):
+    b, h, g, sq, d = qg.shape
+    skv = k.shape[2]
+    block_k = _pick_block(skv, block_k)
+    qf = qg.float()
+    scale = 1.0 / (d ** 0.5)
+    m = torch.full((b, h, g, sq, 1), -1e30, device=qg.device)
+    l = torch.zeros((b, h, g, sq, 1), device=qg.device)
+    acc = torch.zeros((b, h, g, sq, d), device=qg.device)
+    for jb in range(skv // block_k):
+        ks = k[:, :, jb * block_k:(jb + 1) * block_k].float()
+        vs = v[:, :, jb * block_k:(jb + 1) * block_k].float()
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qf, ks) * scale
+        if causal:
+            sc = sc + _causal_bias(jb, block_k, sq, skv, qg.device)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vs)
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)).to(qg.dtype)
+    return out, m + torch.log(l.clamp_min(1e-30))
+
+
+def grouped_chunked_attention(qg, k, v, causal: bool = True,
+                              block_k: int = 512):
+    """Flash attention over grouped heads: qg [B, Hkv, G, Sq, D];
+    k/v [B, Hkv, Skv, D].  Forward only."""
+    return _gchunk_fwd_impl(qg, k, v, causal, block_k)[0]
+
+
+def decode_mha(q, k, v, lengths, impl: str = "kernel"):
+    """Decode attention. q [B, Hq, 1, D], k/v [B, Hkv, S, D], lengths [B].
+
+    ``"kernel"`` folds heads into the batch (kv repeated, lengths repeated
+    per head) for the flat ``decode_attention`` call; any other impl runs
+    the grouped full-softmax reference, as the reference's non-pallas path
+    does."""
+    _check_impl(impl)
+    b, hq, _, d = q.shape
+    hkv = k.shape[1]
+    if impl == "kernel":
+        k, v = _match_heads(k, hq), _match_heads(v, hq)
+        qf = q.reshape(b * hq, 1, d).contiguous()
+        kf = k.reshape(b * hq, -1, d).contiguous()
+        vf = v.reshape(b * hq, -1, d).contiguous()
+        lens = lengths.to(torch.int32).repeat_interleave(hq)
+        out = decode_attention(qf, kf, vf, lens)
+        return out.reshape(b, hq, 1, d)
+    qg = q.reshape(b, hkv, hq // hkv, 1, d)
+    out = _grouped_ref(qg, k, v, causal=False, lengths=lengths)
+    return out.reshape(b, hq, 1, d)

@@ -3,7 +3,8 @@ on the card: ``python -m pytest -q tests/test_torch_cuda.py``.
 
 These tests import neither jax nor the JAX package, so they run on a
 machine with only the port's dependencies.  Without a card they skip: the
-kernels have no CPU mode.  Outputs are int32, so equality is exact.
+kernels have no CPU mode.  The executor kernels' outputs are int32, so
+equality is exact; the attention kernels are held to stated tolerances.
 """
 import numpy as np
 import pytest
@@ -84,3 +85,115 @@ def test_cuda_torch_backend_runs_an_app_on_the_card(cuda_device):
     for arr in want.dram:
         np.testing.assert_array_equal(got.dram[arr], want.dram[arr])
     assert got.vm.stats == want.vm.stats
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (float32: 2e-5, bfloat16: 2e-2 — the tolerances of the
+# reference's kernel tests; the sums run in another order, and bfloat16
+# rounds the output)
+# ---------------------------------------------------------------------------
+
+HEAD_DIMS = (16, 32, 64, 128)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(rng, bh, sq, skv, d, dtype, device):
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+    return t(bh, sq, d), t(bh, skv, d), t(bh, skv, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda_device, d, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(d)
+    shapes = [(3, s, s) for s in (1, 17, 64, 100, 128, 300)]
+    shapes += [(2, 50, 130), (2, 130, 50), (1, 65, 1)]
+    for bh, sq, skv in shapes:
+        q, k, v = _qkv(rng, bh, sq, skv, d, dtype, cuda_device)
+        for causal in (True, False):
+            before = fa.flash_attention.launches
+            got = fa.flash_attention(q, k, v, causal=causal)
+            assert fa.flash_attention.launches == before + 1
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_matches_plain(cuda_device, d, dtype):
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(100 + d)
+    for bh, s in ((5, 1), (5, 7), (7, 128), (6, 1000), (2, 4099)):
+        q, k, v = _qkv(rng, bh, 1, s, d, dtype, cuda_device)
+        lens = rng.integers(1, s + 1, bh)
+        lens[0] = s                                  # the whole cache
+        if bh > 2:
+            lens[1], lens[2] = 0, s + 5              # every key masked; > S
+        lengths = torch.from_numpy(lens.astype(np.int32)).to(cuda_device)
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, k, v, lengths)
+        assert da.decode_attention.launches == before + 1
+        want = da.decode_attention_plain(q, k, v, lengths)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_refuse_what_they_cannot_take(cuda_device):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 2, 8, 8, 48, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, k, v)
+    q, k, v = _qkv(rng, 2, 8, 8, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        decode_attention(*_qkv(rng, 2, 1, 8, 48, torch.float32,
+                               cuda_device)[:1],
+                         *_qkv(rng, 2, 8, 8, 48, torch.float32,
+                               cuda_device)[1:], lengths)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
+    """Reduced qwen2-0.5b through ``DecodeEngine()`` on the card (its
+    defaults: CUDA, ``impl="kernel"``): every prefill layer launches the
+    flash kernel once, and the tokens equal the plain route's
+    (``impl="naive"``) on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.zoo import get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = get_reduced("qwen2-0.5b")
+    zoo = get_model(cfg)
+    params = zoo.init_params(0)
+    assert params["ln_f"]["w"].device.type == "cuda"
+    runs = {}
+    for impl in ("kernel", "naive"):
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab, size=int(rng.integers(4, 17))).astype(np.int32),
+            max_new=6) for i in range(5)]
+        eng = (DecodeEngine(zoo, params, batch_slots=3, max_len=32)
+               if impl == "kernel" else
+               DecodeEngine(zoo, params, 3, 32, impl="naive"))
+        for r in reqs:
+            eng.submit(r)
+        before = flash_attention.launches
+        eng.run_until_drained()
+        runs[impl] = ([r.tokens for r in reqs], eng.stats(),
+                      flash_attention.launches - before)
+        assert all(r.done for r in reqs)
+    assert runs["kernel"][2] == 5 * cfg.n_layers
+    assert runs["naive"][2] == 0
+    assert runs["kernel"][:2] == runs["naive"][:2]
