@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor and
-the dense-LM serving path) on one CUDA card and check it end to end.
+"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor, and
+dense-LM and SSM serving) on one CUDA card and check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -31,6 +31,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              the plain route (``impl="naive"``) within a bf16 tolerance;
              the decode kernel runs over the served KV cache of every layer;
              then ``repro_torch.launch.serve.main`` at the full preset.
+7. ssm_kernel — the ssm_scan kernel against its plain version (2e-5 of the
+             largest |plain| value, on y and hT) over S in {1, 63, 64, 100,
+             512}, Di in {128, 1000, 8192}, N in {8, 16}, zero and random
+             h0, then at the path shape and a large one, with times beside
+             the bound (no PyTorch call computes a selective scan).
+8. ssm_lm  — full-width, full-depth falcon-mamba-7b (random weights drawn
+             on the card) served by ``DecodeEngine`` on the same 8
+             requests; then ``ssm.forward(impl="kernel")`` over each
+             request's prompt and generated tokens (64 kernel launches
+             each), every layer held to the served prefill and decode
+             layers on the same input (8 bf16 steps); end-to-end logits
+             beside the plain forward's, reported; a torch.profiler window
+             over one forward at S = 512; then ``launch.serve.main`` for
+             falcon-mamba-7b (reduced preset).
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -76,6 +90,25 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 1024, 8, 16
 # route's largest |logit|
 LM_LOGIT_BF16_STEPS = 8
 LM_PROFILE_STEPS = 8
+
+# ssm_scan against its plain version: float32, the same steps in the same
+# order; expf's and FMA contraction's rounding and the order of the sum over
+# N differ, so 2e-5 of the largest |plain| value
+SSM_TOL = 2e-5
+SFU_EXP_PER_SM_CLOCK = 16          # special-function unit exponentials
+H100_SMS = 132
+SSM_ARCH = "falcon-mamba-7b"
+SSM_N_PARAMS = 7272665088          # 64 layers, d 4096, d_inner 8192
+SSM_PATH = (1, 512, 8192, 16)      # (B, S, Di, N): the 512-token prompt
+SSM_LARGE = (4, 4096, 8192, 16)
+# each layer of the kernel forward against the served route's layer on the
+# same input (teacher-forced per layer).  Prefill: the two scans differ in
+# float32 rounding, which flips a bf16 rounding of y here and there.
+SSM_PREFILL_BF16_STEPS = 8
+# Decode: the decode step's conv window is float32 (the engine's cache),
+# the forward's conv bf16, so the conv output differs by bf16 rounding and
+# the state carries that over the decode steps.
+SSM_DECODE_BF16_STEPS = 8
 
 PATH_LANES = (1, 127, 128, 129, 512)
 LARGE_N = 1 << 24
@@ -375,11 +408,12 @@ def device_busy(name, app, tb) -> dict:
             **device_time(prof, window["wall_s"], name)}
 
 
-def device_time(prof, wall_s: float, what: str) -> dict:
+def device_time(prof, wall_s: float, what: str, kernel: str = "") -> dict:
     """Device time of all CUDA kernels and copies a profile saw, against
-    the profiled wall time, and the six largest items."""
+    the profiled wall time, and the six largest items; with ``kernel``,
+    also the share of device time of the items whose name holds it."""
     from torch.autograd import DeviceType
-    device_us = 0.0
+    device_us = kernel_us = 0.0
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:   # host ops repeat their kernels
@@ -387,13 +421,19 @@ def device_time(prof, wall_s: float, what: str) -> dict:
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         device_us += us
+        if kernel and kernel in ev.key:
+            kernel_us += us
         top.append((us, ev.key, ev.count))
     require(device_us > 0, f"{what}: the profiler saw no device time")
     top.sort(reverse=True)
-    return {"profiled_wall_s": wall_s, "device_s": device_us / 1e6,
-            "device_busy_share": device_us / 1e6 / wall_s,
-            "top_device": [{"name": k[:60], "us": us, "count": c}
-                           for us, k, c in top[:6]]}
+    out = {"profiled_wall_s": wall_s, "device_s": device_us / 1e6,
+           "device_busy_share": device_us / 1e6 / wall_s,
+           "top_device": [{"name": k[:60], "us": us, "count": c}
+                          for us, k, c in top[:6]]}
+    if kernel:
+        require(kernel_us > 0, f"{what}: the profiler saw no {kernel}")
+        out[f"{kernel}_device_share"] = kernel_us / device_us
+    return out
 
 
 def phase_apps(tb):
@@ -627,16 +667,20 @@ def phase_attention(dev):
 def _lm_launches():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
     return {"flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches}
+            "decode_attention": decode_attention.launches,
+            "ssm_scan": ssm_scan.launches}
 
 
 def _reset_all_launches():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
     _reset_launches()
     flash_attention.launches = 0
     decode_attention.launches = 0
+    ssm_scan.launches = 0
 
 
 def timed_zoo(zoo):
@@ -867,6 +911,324 @@ def phase_lm():
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the ssm_scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _ssm_inputs(gen, bsz, s, di, n, zero_h0, dev):
+    """x, dt (softplus of a normal, as the model's), a (< 0), b, c, d, h0,
+    drawn on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    h0 = torch.zeros(bsz, di, n, device=dev) if zero_h0 else r(bsz, di, n)
+    return (r(bsz, s, di), F.softplus(r(bsz, s, di)),
+            -torch.exp(0.5 * r(di, n)), r(bsz, s, n), r(bsz, s, n), r(di),
+            h0)
+
+
+def _ssm_case(sc, ins, what) -> tuple[float, float]:
+    """Kernel against plain on y and hT; returns the largest |error| and
+    the largest |error| over the largest |plain| value."""
+    got = sc.ssm_scan(*ins)
+    want = sc.ssm_scan_plain(*ins)
+    worst = (0.0, 0.0)
+    for name, g, w in zip(("y", "hT"), got, want):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        require(err <= SSM_TOL * scale,
+                f"ssm_scan {what}: {name} differs from plain by {err} "
+                f"(largest |plain| {scale}, tol {SSM_TOL} of it)")
+        worst = max(worst[0], err), max(worst[1], err / scale if scale else 0)
+    return worst
+
+
+def _ssm_bound(bsz, s, di, n, clock_hz) -> dict:
+    """Bytes (each input read once, each output written once) at the memory
+    rate, and the B*S*Di*N exponentials at the SFU rate."""
+    nbytes = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + di
+                  + 2 * bsz * di * n)
+    exp_ms = bsz * s * di * n / (SFU_EXP_PER_SM_CLOCK * H100_SMS
+                                 * clock_hz) * 1e3
+    mem_ms = bytes_ms(nbytes)
+    return {"bound_ms": max(exp_ms, mem_ms),
+            "bound_by": "operations" if exp_ms >= mem_ms else "bytes",
+            "bytes_ms": mem_ms, "exp_ms": exp_ms, "sm_clock_hz": clock_hz}
+
+
+def phase_ssm_kernel(dev):
+    import torch
+    from repro_torch.kernels import ssm_scan as sc
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    cases, worst_abs, worst_rel = 0, 0.0, 0.0
+    for s in (1, 63, 64, 100, 512):
+        for di in (128, 1000, 8192):            # 1000: a ragged last block
+            for n in (8, 16):
+                for zero_h0 in (True, False):
+                    ins = _ssm_inputs(gen, 2, s, di, n, zero_h0, dev)
+                    e, r = _ssm_case(sc, ins, f"B=2 S={s} Di={di} N={n} "
+                                     f"h0={'zero' if zero_h0 else 'random'}")
+                    worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
+                    cases += 1
+    clock = _sm_clock_hz()
+    rows = {}
+    # the path shape with the model's zero h0; the large one with a random h0
+    for label, shape, iters, plain_iters, zero_h0 in (
+            ("path", SSM_PATH, 50, 3, True),
+            ("large", SSM_LARGE, 5, 1, False)):
+        ins = _ssm_inputs(gen, *shape, zero_h0, dev)
+        e, r = _ssm_case(sc, ins, f"{label} {shape}")
+        worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
+        cases += 1
+        rec = {"b": shape[0], "s": shape[1], "di": shape[2], "n": shape[3],
+               "max_abs_err": e, "max_err_over_scale": r,
+               "kernel_ms": time_ms(lambda: sc.ssm_scan(*ins), iters),
+               "plain_ms": time_ms(lambda: sc.ssm_scan_plain(*ins),
+                                   plain_iters, warmup=1),
+               "library_ms": None,
+               "library_note": "none: no single PyTorch call computes a "
+                               "selective scan",
+               **_ssm_bound(*shape, clock)}
+        rows[label] = rec
+        emit({"phase": "ssm_kernel", "kernel": "ssm_scan", "shape": label,
+              **rec})
+    torch.cuda.synchronize()
+    emit({"phase": "ssm_kernel", "check": f"vs plain, {SSM_TOL} of the "
+          "largest |plain|", "cases": cases, "max_abs_err": worst_abs,
+          "max_err_over_scale": worst_rel})
+    return {"ssm_scan": {**rows, "max_abs_err": worst_abs}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: full-width falcon-mamba-7b served through DecodeEngine
+# ---------------------------------------------------------------------------
+
+def card_params(spec, dev):
+    """Random weights for ``spec``, drawn on the card from a
+    ``torch.Generator`` seeded SEED: standard normal over the square root
+    of the fan-in, as ``params.init`` scales them (zeros and ones leaves as
+    declared), in float32 one layer of a stacked leaf at a time, rounded to
+    the leaf's dtype.  Not the reference's numbers (the CPU tests hold
+    those): drawing 7 B of them on the host takes minutes."""
+    import torch
+    from repro_torch.models.params import tree_map
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def leaf(p):
+        dtype = getattr(torch, p.dtype)
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=dev)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=dev)
+        scale = 1.0 / math.sqrt(max(p.shape[-2] if len(p.shape) >= 2
+                                    else p.shape[-1], 1))
+        out = torch.empty(p.shape, dtype=dtype, device=dev)
+        for part in (out if p.axes[0] == "layers" else out[None]):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                       * scale)
+        return out
+
+    return tree_map(leaf, spec)
+
+
+def _ssm_layer_check(params, cfg, req, dev) -> dict:
+    """Each layer of the kernel forward over the request's prompt and
+    generated tokens, held against the served route's layer on the same
+    input: the kernel forward's own stream into layer i goes through
+    ``ssm.block(impl="kernel")``, through ``ssm.prefill_block`` over the
+    prompt rows, and through ``ssm.decode_block`` one fed-back token at a
+    time from the prefill's state (its conv tail cast to float32, as the
+    engine's cache holds it).  Per layer and route, the largest |diff|
+    over the tolerance (that many bf16 steps at the largest |output|)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_params
+    p_len, n_dec = len(req.prompt), len(req.tokens) - 1
+    seq = torch.as_tensor(np.concatenate([req.prompt, req.tokens])
+                          .astype(np.int32), device=dev)[None]
+    x = L.embed(params["embed"], seq)
+    worst = {"prefill": [], "decode": []}
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        out = ssm.block(lp, x, cfg, "kernel")
+        served, h, tail = ssm.prefill_block(lp, x[:, :p_len], cfg)
+        conv, dec = tail.float(), []
+        for j in range(p_len, p_len + n_dec):
+            o, h, conv = ssm.decode_block(lp, x[:, j: j + 1], h, conv, cfg)
+            dec.append(o)
+        for what, got, want, steps in (
+                ("prefill", served, out[:, :p_len], SSM_PREFILL_BF16_STEPS),
+                ("decode", torch.cat(dec, 1), out[:, p_len: p_len + n_dec],
+                 SSM_DECODE_BF16_STEPS)):
+            tol = _bf16_steps(steps, float(want.abs().max()))
+            diff = float((got.float() - want.float()).abs().max())
+            require(diff <= tol, f"rid {req.rid} layer {i}: the served "
+                    f"{what} layer differs from the kernel forward's by "
+                    f"{diff} (tol {tol})")
+            worst[what].append(diff / tol)
+        x = out
+    return {k: max(v) for k, v in worst.items()}
+
+
+def _ssm_served_logits(zoo, params, req):
+    """The served logits of one request, at batch 1: its prefill, spliced
+    into a fresh state as the engine splices it (the conv tail to float32),
+    then one decode step per generated token fed back."""
+    import torch
+    from repro_torch.serve.engine import _splice_cache
+    dev = params["ln_f"]["w"].device
+    toks = torch.as_tensor(req.prompt, device=dev)[None]
+    lg, cache1, pos = zoo.prefill(params, {"tokens": toks}, LM_MAX_LEN)
+    cache = _splice_cache(zoo.init_cache(1, LM_MAX_LEN), cache1, 0)
+    steps = [lg[0, -1]]
+    for t in req.tokens[:-1]:
+        tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
+        lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+        steps.append(lg[0, -1])
+    return torch.stack(steps).float()[:, :zoo.cfg.vocab]
+
+
+def ssm_profile(params, cfg, prompt) -> dict:
+    """torch.profiler over one kernel-route forward at S = len(prompt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
+
+    def run():
+        ssm.forward(params, prompt, cfg, impl="kernel")[0, -1].argmax().item()
+
+    run()                                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"phase": "ssm_lm", "profile": f"forward(impl='kernel') at S = "
+            f"{prompt.shape[1]}", **device_time(prof, wall, "ssm profile",
+                                                 kernel="ssm_scan")}
+
+
+def phase_ssm_lm(dev):
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import ssm
+    from repro_torch.models.params import leaves
+    from repro_torch.models.zoo import get_model
+    gc.collect()                                   # the lm phase's weights
+    torch.cuda.empty_cache()
+    cfg = get_config(SSM_ARCH)
+    zoo = timed_zoo(get_model(cfg))
+    t0 = time.perf_counter()
+    params = card_params(zoo.spec(), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = zoo.n_params()
+    require(n_params == SSM_N_PARAMS, f"{SSM_ARCH}: {n_params} parameters")
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    reqs, eng, wall = _serve(zoo, params)
+    served_launches = _lm_launches()
+    fwd_ms, fwd_logits = [], []
+    for r in reqs:
+        seq = torch.as_tensor(np.concatenate([r.prompt, r.tokens])
+                              .astype(np.int32), device=dev)[None]
+        t = time.perf_counter()
+        lg = ssm.forward(params, seq, cfg, impl="kernel")
+        p = len(r.prompt)                         # rows of the 16 tokens
+        fwd_logits.append(lg[0, p - 1: p - 1 + len(r.tokens),
+                             :cfg.vocab].float().clone())
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t) * 1e3)
+        del lg
+    peak = torch.cuda.max_memory_allocated()
+    launches = _lm_launches()
+    require(launches["ssm_scan"] == LM_REQUESTS * cfg.n_layers,
+            f"ssm_scan launched {launches['ssm_scan']} times, want "
+            f"{LM_REQUESTS} x {cfg.n_layers}")
+    state = zoo.init_cache(1, LM_MAX_LEN)
+    tokens = sum(len(r.tokens) for r in reqs)
+    emit({"phase": "ssm_lm", "arch": SSM_ARCH, "n_params": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "requests": LM_REQUESTS,
+          "prompt_lens": [len(r.prompt) for r in reqs], "tokens": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall, **eng.stats(),
+          "prefill_ms": zoo.prefill_ms, "decode_ms_per_step": zoo.decode_ms,
+          "forward_kernel_ms": fwd_ms, "max_memory_allocated": peak,
+          "state_bytes_per_slot": {k: v.numel() * v.element_size()
+                                   for k, v in state.items()},
+          "served_launches": served_launches, "launches": launches})
+    del state
+
+    # -- checks (launches from here on are comparisons, not the path).
+    # Per layer, teacher-forced: the gate.
+    worst = {"prefill": 0.0, "decode": 0.0}
+    for r in reqs:
+        for k, v in _ssm_layer_check(params, cfg, r, dev).items():
+            worst[k] = max(worst[k], v)
+    emit({"phase": "ssm_lm", "check": "kernel forward vs served, per layer "
+          "on the same input", "layers": cfg.n_layers * LM_REQUESTS,
+          "bf16_steps": {"prefill": SSM_PREFILL_BF16_STEPS,
+                         "decode": SSM_DECODE_BF16_STEPS},
+          "worst_diff_over_tol": worst})
+    # End to end, measured: 64 bf16 layers of random weights carry a
+    # rounding difference far (the plain forward, whose scan differs from
+    # the served one only in rounding, is the control).
+    e2e = {"kernel": [], "plain": []}
+    agree = {"kernel": 0, "plain": 0}
+    for r, lk in zip(reqs, fwd_logits):
+        ls = _ssm_served_logits(zoo, params, r)
+        seq = torch.as_tensor(np.concatenate([r.prompt, r.tokens])
+                              .astype(np.int32), device=dev)[None]
+        p = len(r.prompt)
+        lp = ssm.forward(params, seq, cfg, impl="chunked")[
+            0, p - 1: p - 1 + len(r.tokens), :cfg.vocab].float()
+        for name, lf in (("kernel", lk), ("plain", lp)):
+            require(bool(torch.isfinite(lf).all()) and lf.shape == ls.shape,
+                    f"rid {r.rid}: {name} forward logits")
+            e2e[name].append([float((ls[0] - lf[0]).abs().max()),
+                              float((ls[1:] - lf[1:]).abs().max())])
+            agree[name] += sum(int(t == int(lf[s].argmax()))
+                               for s, t in enumerate(r.tokens))
+    emit({"phase": "ssm_lm", "end_to_end": "served logits vs forward "
+          "logits [prefill row, decode rows] per request",
+          "max_abs_logit": float(max(lk.abs().max() for lk in fwd_logits)),
+          "kernel_forward": e2e["kernel"], "plain_forward": e2e["plain"],
+          "greedy_tokens_equal": agree, "tokens": tokens})
+
+    emit(ssm_profile(params, cfg, torch.as_tensor(
+        reqs[0].prompt, device=dev)[None]))
+
+    # -- the CLI entry point for this architecture, in process, on the card
+    del params, eng
+    gc.collect()
+    t0 = time.perf_counter()
+    res = launch_serve.main(["--arch", SSM_ARCH])
+    emit({"phase": "ssm_lm", "entry": "repro_torch.launch.serve.main",
+          "arch": SSM_ARCH, "preset": "reduced",
+          "seconds": time.perf_counter() - t0, **res})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = {
     "stream_compact": {
@@ -881,6 +1243,9 @@ KERNEL_ROWS = {
     "decode_attention": {
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:22"},
+    "ssm_scan": {
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:23"},
 }
 
 
@@ -925,10 +1290,13 @@ def main() -> int:
     timed("serve", phase_serve, tb)
     timings.update(timed("attention", phase_attention, dev))
     lm = timed("lm", phase_lm)
+    timings.update(timed("ssm_kernel", phase_ssm_kernel, dev))
+    ssm_lm = timed("ssm_lm", phase_ssm_lm, dev)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",
                                         "decode_attention")})
+    launches["ssm_scan"] = ssm_lm["ssm_scan"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -947,9 +1315,11 @@ def main() -> int:
             "bound_ms": path["bound_ms"],
             "bound_by": path.get("bound_by", "bytes"),
             "library_ms": path["library_ms"],
-            "shape": {k: path[k] for k in ("n", "d", "emitted", "bh", "sq",
-                                           "skv", "s", "dtype", "causal")
-                      if k in path},
+            **({"library_note": path["library_note"]}
+               if path["library_ms"] is None else {}),
+            "shape": {k: path[k] for k in ("b", "n", "d", "di", "emitted",
+                                           "bh", "sq", "skv", "s", "dtype",
+                                           "causal") if k in path},
             "large": timings[name]["large"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 points that call them (``ops``).
 
 Dataflow executor: stream_compact (filter, discard, barrier lowering) and
-segment_reduce (SLTF reduce).  LM serving: flash_attention (prefill) and
-decode_attention.  Each builds its CUDA source from ``csrc/`` at first CUDA
-use (``_build``); importing this package builds nothing.
+segment_reduce (SLTF reduce).  LM serving: flash_attention (prefill),
+decode_attention and ssm_scan (the Mamba-1 selective scan).  Each builds
+its CUDA source from ``csrc/`` at first CUDA use (``_build``); importing
+this package builds nothing.
 """
 from . import ops  # noqa: F401

@@ -24,6 +24,11 @@ Attention (the reference's ``kernels/ops.py:582-859``, forward only):
 hand-written ``flash_attention`` / ``decode_attention`` kernels on a CUDA
 tensor and runs their plain torch versions on a CPU tensor.  ``"chunked"``
 and ``"ref"`` keep their meaning.  The flash backwards come with training.
+
+Recurrences (the reference's ``kernels/ops.py:862-929``): ``ssm`` with
+``impl="kernel"`` launches the hand-written ``ssm_scan`` kernel (its plain
+torch loop on a CPU tensor); ``ssm_assoc`` and ``ssm_chunked`` are the
+reference's associative-scan formulations in plain torch, taking any S.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from . import ref as _ref
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .segment_reduce import segment_reduce
+from .ssm_scan import ssm_scan
 from .stream_compact import stream_compact
 
 _INT32_MIN = -(1 << 31)
@@ -379,3 +385,70 @@ def decode_mha(q, k, v, lengths, impl: str = "kernel"):
     qg = q.reshape(b, hkv, hq // hkv, 1, d)
     out = _grouped_ref(qg, k, v, causal=False, lengths=lengths)
     return out.reshape(b, hq, 1, d)
+
+
+# ---- recurrences ----
+
+def ssm(x, dt, a, b, c, d, h0, impl: str = "kernel"):
+    """Mamba-1 selective scan. x/dt [B, S, Di]; a [Di, N]; b/c [B, S, N];
+    d [Di]; h0 [B, Di, N] -> (y [B, S, Di], hT [B, Di, N]).
+
+    ``"kernel"`` (the reference's ``"pallas"``) calls ``ssm_scan``, which
+    takes float32 only; any other impl runs :func:`ssm_assoc`, as the
+    reference's does."""
+    if impl == "kernel":
+        return ssm_scan(*(t.contiguous() for t in (x, dt, a, b, c, d, h0)))
+    return ssm_assoc(x, dt, a, b, c, d, h0)
+
+
+def _assoc_scan(aa: torch.Tensor, bb: torch.Tensor):
+    """Inclusive scan along axis 1 of the pairs ``(aa, bb)`` under the
+    reference's combine ``(a1, b1) ∘ (a2, b2) = (a1·a2, a2·b1 + b2)``, in
+    ceil(log2 S) steps (torch has no ``associative_scan``)."""
+    off = 1
+    while off < aa.shape[1]:
+        a_cur = aa[:, off:]
+        bb = torch.cat([bb[:, :off], a_cur * bb[:, :-off] + bb[:, off:]], 1)
+        aa = torch.cat([aa[:, :off], aa[:, :-off] * a_cur], 1)
+        off *= 2
+    return aa, bb
+
+
+def _scan_block(dt, dtx, a, b, c, dx, h):
+    """One block of the associative-scan formulation, all float32: dt/dtx
+    (dt·x)/dx (d·x) [B, C, Di], a [Di, N], b/c [B, C, N], entering state h
+    [B, Di, N] -> (y [B, C, Di], state after the block).  Materialises the
+    [B, C, Di, N] pairs."""
+    da = torch.exp(dt[..., None] * a)
+    u = dtx[..., None] * b[:, :, None, :]
+    u[:, 0] += da[:, 0] * h
+    _, hh = _assoc_scan(da, u)
+    return torch.einsum("bsdn,bsn->bsd", hh, c) + dx, hh[:, -1]
+
+
+def ssm_assoc(x, dt, a, b, c, d, h0):
+    """Associative-scan formulation over the whole sequence (the reference's
+    dry-run path)."""
+    f32 = torch.float32
+    xf = x.to(f32)
+    y, hT = _scan_block(dt.to(f32), (dt * x).to(f32), a.to(f32), b.to(f32),
+                        c.to(f32), d.to(f32) * xf, h0.to(f32))
+    return y.to(x.dtype), hT
+
+
+def ssm_chunked(x, dt, a, b, c, d, h0, chunk: int = 128):
+    """Selective scan in sequence chunks of ``chunk`` steps, carrying only
+    the [B, Di, N] state between them: the [B, C, Di, N] tensors exist one
+    chunk at a time.  Any S: the last chunk is just shorter (the reference
+    asserts S % chunk == 0), which is exact."""
+    f32 = torch.float32
+    af, dsk = a.to(f32), d.to(f32)
+    h = h0.to(f32)
+    ys = []
+    for t0 in range(0, x.shape[1], chunk):
+        cut = slice(t0, t0 + chunk)
+        xf, dtf = x[:, cut].to(f32), dt[:, cut].to(f32)
+        y, h = _scan_block(dtf, dtf * xf, af, b[:, cut].to(f32),
+                           c[:, cut].to(f32), dsk * xf, h)
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, 1), h

@@ -1,8 +1,8 @@
 """Plain torch oracles for the port's kernels.
 
 Each function is the semantic ground truth the kernels and the plain paths
-are held to, on any device.  Only the attention oracle is here so far; the
-others come with their kernels.
+are held to, on any device: attention and the Mamba-1 selective scan so
+far; the others come with their kernels.
 """
 from __future__ import annotations
 
@@ -30,3 +30,20 @@ def attention_ref(q, k, v, causal: bool = True, lengths=None):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+# -- ssm_scan -----------------------------------------------------------------
+
+def ssm_scan_ref(x, dt, a, b, c, d, h0):
+    """Sequential reference of the Mamba-1 recurrence, in float64 (for
+    stability), on the inputs' device.  x/dt [B, S, Di]; a [Di, N];
+    b/c [B, S, N]; d [Di]; h0 [B, Di, N] -> (y [B, S, Di], hT [B, Di, N]),
+    both float64."""
+    x, dt, a, b, c, d = (t.double() for t in (x, dt, a, b, c, d))
+    h = h0.double().clone()
+    y = torch.zeros_like(x)
+    for t in range(x.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a)
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        y[:, t] = (h * c[:, t, None, :]).sum(-1) + d * x[:, t]
+    return y, h

@@ -4,10 +4,15 @@ request load (mixed prompt/output lengths), on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --preset full --requests 8 --slots 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+
 Reports throughput and lane occupancy — the serving analogue of the paper's
 lane-density claim (the engine IS the forward-backward merge; see
-serve/engine.py).  The engine runs its default ``impl="kernel"``: prefill
-attention goes through the hand-written flash attention kernel.
+serve/engine.py).  ``--arch`` takes any architecture of a ported family
+(dense, ssm).  The engine runs its default ``impl="kernel"``: a dense
+model's prefill attention goes through the hand-written flash attention
+kernel; an SSM's prefill runs the reference's plain chunked scan whatever
+the impl, so its state carries over constant-size into the decode steps.
 """
 from __future__ import annotations
 

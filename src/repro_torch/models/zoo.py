@@ -5,8 +5,8 @@
     zoo.init_params(seed, device)   # the reference's weights, as tensors
     zoo.prefill / zoo.decode_step / zoo.init_cache
 
-Only the dense family is ported so far; the others raise, naming the
-ROADMAP item that brings them.  Training (``loss_fn``, batch specs) comes
+The dense and SSM families are ported so far; the others raise, naming
+the ROADMAP item that brings them.  Training (``loss_fn``, batch specs) comes
 with the training slice.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import ssm, transformer
 from .params import init, n_params
 
 
@@ -47,11 +47,10 @@ class Zoo:
                                 impl=impl)
 
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "ssm": ssm}
 
 # where each family not yet ported stands in ROADMAP.md
 _PENDING = {
-    "ssm": "Queue 1 item 4 (models/ssm.py)",
     "hybrid": "Queue 1 item 5 (models/rglru.py)",
     "moe": "Queue 1 item 6 (models/moe.py)",
     "encdec": "Queue 1 item 9 (models/encdec.py)",

@@ -4,7 +4,8 @@ on the card: ``python -m pytest -q tests/test_torch_cuda.py``.
 These tests import neither jax nor the JAX package, so they run on a
 machine with only the port's dependencies.  Without a card they skip: the
 kernels have no CPU mode.  The executor kernels' outputs are int32, so
-equality is exact; the attention kernels are held to stated tolerances.
+equality is exact; the attention and scan kernels are held to stated
+tolerances.
 """
 import numpy as np
 import pytest
@@ -197,3 +198,88 @@ def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
     assert runs["kernel"][2] == 5 * cfg.n_layers
     assert runs["naive"][2] == 0
     assert runs["kernel"][:2] == runs["naive"][:2]
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan (float32: within 2e-5 of the largest |plain| value, on y and hT —
+# the same steps in the same order; expf's and FMA contraction's rounding
+# and the order of the sum over N differ)
+# ---------------------------------------------------------------------------
+
+SSM_TOL = 2e-5
+
+
+def _ssm_inputs(gen, bsz, s, di, n, zero_h0, device):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    h0 = (torch.zeros(bsz, di, n, device=device) if zero_h0
+          else r(bsz, di, n))
+    return (r(bsz, s, di), torch.nn.functional.softplus(r(bsz, s, di)),
+            -torch.exp(0.5 * r(di, n)), r(bsz, s, n), r(bsz, s, n), r(di),
+            h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 5, 8, 16, 32))
+def test_cuda_ssm_scan_matches_plain(cuda_device, n):
+    from repro_torch.kernels import ssm_scan as sc
+    gen = torch.Generator(cuda_device).manual_seed(n)
+    for s in (1, 63, 64, 100, 512):
+        for di in (128, 200):
+            for zero_h0 in (True, False):
+                ins = _ssm_inputs(gen, 2, s, di, n, zero_h0, cuda_device)
+                before = sc.ssm_scan.launches
+                got = sc.ssm_scan(*ins)
+                assert sc.ssm_scan.launches == before + 1
+                want = sc.ssm_scan_plain(*ins)
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape and g.dtype == torch.float32
+                    err = float((g - w).abs().max())
+                    assert err <= SSM_TOL * float(w.abs().max()), (s, di, err)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x, dt, a, b, c, d, h0 = _ssm_inputs(gen, 2, 8, 64, 8, False, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan(x.bfloat16(), dt, a, b, c, d, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, a, b,
+                 c, d, h0)
+    big = _ssm_inputs(gen, 1, 8, 64, 33, False, cuda_device)
+    with pytest.raises(ValueError, match="N = 33"):
+        ssm_scan(*big)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_model_runs_the_kernel(cuda_device):
+    """Reduced falcon-mamba-7b on the card: ``forward(impl="kernel")``
+    launches the kernel once per layer and agrees with the plain
+    ``"chunked"`` route; ``DecodeEngine()`` serves every request."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models import ssm
+    from repro_torch.models.zoo import get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = get_reduced("falcon-mamba-7b")
+    zoo = get_model(cfg)
+    params = zoo.init_params(0)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 150))
+                            .astype(np.int32)).to(cuda_device)
+    before = ssm_scan.launches
+    got = ssm.forward(params, toks, cfg, impl="kernel")
+    assert ssm_scan.launches == before + cfg.n_layers
+    want = ssm.forward(params, toks, cfg, impl="chunked")
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        1, cfg.vocab, size=int(rng.integers(4, 200))).astype(np.int32),
+        max_new=6) for i in range(5)]
+    eng = DecodeEngine(zoo, params, batch_slots=3, max_len=256)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+    assert eng.cache["conv"].dtype == torch.float32

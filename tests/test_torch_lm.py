@@ -129,7 +129,7 @@ def test_entry_points_default_to_the_card(monkeypatch, reduced):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_reduced("falcon-mamba-7b"))
+        get_model(get_reduced("recurrentgemma-9b"))
 
 
 # ---------------------------------------------------------------------------
