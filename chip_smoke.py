@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """chip_smoke — drive the PyTorch port of Revet (the dataflow executor, and
-dense-LM and SSM serving) on one CUDA card and check it end to end.
+dense-LM, SSM and hybrid serving) on one CUDA card and check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -45,6 +45,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              beside the plain forward's, reported; a torch.profiler window
              over one forward at S = 512; then ``launch.serve.main`` for
              falcon-mamba-7b (reduced preset).
+9. rglru_kernel — the rg_lru scan kernel against its plain version (2e-5 of
+             the largest |plain| value, on y and hT) over S in {1, 63, 64,
+             100, 512, 4096}, D in {1, 100, 4096}, B in {1, 4}, zero and
+             random h0, then at the path shape and a large one, with times
+             beside the bound; flash and decode attention at head dim 256
+             (recurrentgemma-9b's heads) against their plain versions.
+10. hybrid_lm — full-width, full-depth recurrentgemma-9b (random weights
+             drawn on the card) served by ``DecodeEngine(max_len=4352)`` on
+             the 8 requests and one 4096-token prompt, whose prefill takes
+             the banded local attention and whose decode wraps the 2048-row
+             K/V ring; then, per request, each block walked in order on the
+             prompt and served tokens, the kernel route (``_rec_block(
+             impl="kernel")``, ``_attn_block(impl="kernel")``) held to the
+             served route's block on the same input (8 bf16 steps); the
+             decode kernel over every attention block's served ring;
+             end-to-end logits beside a plain control, reported; a
+             torch.profiler window over one 512-token prefill; then
+             ``launch.serve.main`` for recurrentgemma-9b (reduced preset).
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -110,6 +128,20 @@ SSM_PREFILL_BF16_STEPS = 8
 # the state carries that over the decode steps.
 SSM_DECODE_BF16_STEPS = 8
 
+# rg_lru against its plain version: float32, the same rounded multiply and
+# add per step (the kernel should agree bit for bit); the gate is SSM_TOL,
+# 2e-5 of the largest |plain| value
+RG_PATH = (1, 512, 4096)           # (B, S, D): the 512-token prompt
+RG_LARGE = (4, 4096, 4096)
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_N_PARAMS = 10444771328      # 38 layers, d 4096, 16/1 heads of 256
+HYBRID_MAX_LEN = 4352              # ring w = min(window 2048, max_len)
+HYBRID_LONG = 4096                 # the prompt past the window
+# each block of the kernel route against the served route's block on the
+# same input (teacher-forced per block): the two scans (or attentions)
+# differ in float32 rounding, which flips a bf16 rounding here and there
+HYBRID_BF16_STEPS = 8
+
 PATH_LANES = (1, 127, 128, 129, 512)
 LARGE_N = 1 << 24
 
@@ -141,6 +173,35 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device time of ``fn`` with the host taken out: ``iters`` calls
+    captured in one CUDA graph, replayed ``reps`` times between CUDA
+    events.  A loop of eager calls (``time_ms``) also counts the gaps while
+    the host issues the next launch, which dominate a kernel of a few
+    microseconds."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                       # warm, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def bytes_ms(nbytes: int) -> float:
@@ -664,23 +725,24 @@ def phase_attention(dev):
 # phase 6: full-width LM serving through DecodeEngine
 # ---------------------------------------------------------------------------
 
-def _lm_launches():
+def _lm_kernels():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rg_lru
     from repro_torch.kernels.ssm_scan import ssm_scan
-    return {"flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches,
-            "ssm_scan": ssm_scan.launches}
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention, "ssm_scan": ssm_scan,
+            "rg_lru": rg_lru}
+
+
+def _lm_launches():
+    return {k: fn.launches for k, fn in _lm_kernels().items()}
 
 
 def _reset_all_launches():
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssm_scan import ssm_scan
     _reset_launches()
-    flash_attention.launches = 0
-    decode_attention.launches = 0
-    ssm_scan.launches = 0
+    for fn in _lm_kernels().values():
+        fn.launches = 0
 
 
 def timed_zoo(zoo):
@@ -721,14 +783,15 @@ def _lm_requests(cfg):
             for i, n in enumerate(lens)]
 
 
-def _serve(zoo, params, impl=None):
-    """The 8 requests through ``DecodeEngine`` (its default impl unless
-    given).  Returns (requests, engine, wall seconds)."""
+def _serve(zoo, params, impl=None, max_len=LM_MAX_LEN, reqs=None):
+    """The 8 requests (or ``reqs``) through ``DecodeEngine`` with LM_SLOTS
+    slots of ``max_len`` (its default impl unless given).  Returns
+    (requests, engine, wall seconds)."""
     import torch
     from repro_torch.serve.engine import DecodeEngine
     kw = {} if impl is None else {"impl": impl}
-    eng = DecodeEngine(zoo, params, LM_SLOTS, LM_MAX_LEN, **kw)
-    reqs = _lm_requests(zoo.cfg)
+    eng = DecodeEngine(zoo, params, LM_SLOTS, max_len, **kw)
+    reqs = _lm_requests(zoo.cfg) if reqs is None else reqs
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -935,20 +998,25 @@ def _ssm_inputs(gen, bsz, s, di, n, zero_h0, dev):
             h0)
 
 
-def _ssm_case(sc, ins, what) -> tuple[float, float]:
-    """Kernel against plain on y and hT; returns the largest |error| and
-    the largest |error| over the largest |plain| value."""
-    got = sc.ssm_scan(*ins)
-    want = sc.ssm_scan_plain(*ins)
+def _scan_case(name, kernel, plain, ins, what) -> tuple[float, float]:
+    """A scan kernel against its plain version on y and hT; returns the
+    largest |error| and the largest |error| over the largest |plain|
+    value, which must stay within SSM_TOL."""
+    got = kernel(*ins)
+    want = plain(*ins)
     worst = (0.0, 0.0)
-    for name, g, w in zip(("y", "hT"), got, want):
+    for out, g, w in zip(("y", "hT"), got, want):
         err = float((g - w).abs().max())
         scale = float(w.abs().max())
         require(err <= SSM_TOL * scale,
-                f"ssm_scan {what}: {name} differs from plain by {err} "
+                f"{name} {what}: {out} differs from plain by {err} "
                 f"(largest |plain| {scale}, tol {SSM_TOL} of it)")
         worst = max(worst[0], err), max(worst[1], err / scale if scale else 0)
     return worst
+
+
+def _ssm_case(sc, ins, what) -> tuple[float, float]:
+    return _scan_case("ssm_scan", sc.ssm_scan, sc.ssm_scan_plain, ins, what)
 
 
 def _ssm_bound(bsz, s, di, n, clock_hz) -> dict:
@@ -1080,16 +1148,18 @@ def _ssm_layer_check(params, cfg, req, dev) -> dict:
     return {k: max(v) for k, v in worst.items()}
 
 
-def _ssm_served_logits(zoo, params, req):
+def _served_logits(zoo, params, req, max_len=LM_MAX_LEN, impl="chunked"):
     """The served logits of one request, at batch 1: its prefill, spliced
-    into a fresh state as the engine splices it (the conv tail to float32),
-    then one decode step per generated token fed back."""
+    into a fresh state as the engine splices it (an SSM's conv tail to
+    float32, a hybrid's short K/V into the ring's leading rows), then one
+    decode step per generated token fed back."""
     import torch
     from repro_torch.serve.engine import _splice_cache
     dev = params["ln_f"]["w"].device
     toks = torch.as_tensor(req.prompt, device=dev)[None]
-    lg, cache1, pos = zoo.prefill(params, {"tokens": toks}, LM_MAX_LEN)
-    cache = _splice_cache(zoo.init_cache(1, LM_MAX_LEN), cache1, 0)
+    lg, cache1, pos = zoo.prefill(params, {"tokens": toks}, max_len,
+                                  impl=impl)
+    cache = _splice_cache(zoo.init_cache(1, max_len), cache1, 0)
     steps = [lg[0, -1]]
     for t in req.tokens[:-1]:
         tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
@@ -1195,7 +1265,7 @@ def phase_ssm_lm(dev):
     e2e = {"kernel": [], "plain": []}
     agree = {"kernel": 0, "plain": 0}
     for r, lk in zip(reqs, fwd_logits):
-        ls = _ssm_served_logits(zoo, params, r)
+        ls = _served_logits(zoo, params, r)
         seq = torch.as_tensor(np.concatenate([r.prompt, r.tokens])
                               .astype(np.int32), device=dev)[None]
         p = len(r.prompt)
@@ -1229,6 +1299,341 @@ def phase_ssm_lm(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the rg_lru kernel, and attention at head dim 256
+# ---------------------------------------------------------------------------
+
+def _rg_inputs(gen, bsz, s, d, zero_h0, dev):
+    """a in [0, 1), b ~ 0.1 N(0, 1), h0 zero or ~ 0.1 N(0, 1) (the
+    reference's kernel test), drawn on the card."""
+    import torch
+    a = torch.rand((bsz, s, d), generator=gen, device=dev)
+    b = 0.1 * torch.randn((bsz, s, d), generator=gen, device=dev)
+    h0 = (torch.zeros(bsz, d, device=dev) if zero_h0
+          else 0.1 * torch.randn((bsz, d), generator=gen, device=dev))
+    return a, b, h0
+
+
+def _rg_case(rg, ins, what) -> tuple[float, float]:
+    return _scan_case("rg_lru", rg.rg_lru, rg.rg_lru_plain, ins, what)
+
+
+def phase_rglru_kernel(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rg_lru as rg
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    cases, worst_abs, worst_rel = 0, 0.0, 0.0
+    for s in (1, 63, 64, 100, 512, 4096):
+        for d in (1, 100, 4096):
+            for bsz in (1, 4):
+                for zero_h0 in (True, False):
+                    ins = _rg_inputs(gen, bsz, s, d, zero_h0, dev)
+                    e, r = _rg_case(rg, ins, f"B={bsz} S={s} D={d} h0="
+                                    f"{'zero' if zero_h0 else 'random'}")
+                    worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
+                    cases += 1
+    rows = {}
+    # the path shape with the model's zero h0; the large one with a random h0
+    for label, shape, iters, plain_iters, zero_h0 in (
+            ("path", RG_PATH, 100, 3, True),
+            ("large", RG_LARGE, 10, 1, False)):
+        ins = _rg_inputs(gen, *shape, zero_h0, dev)
+        e, r = _rg_case(rg, ins, f"{label} {shape}")
+        worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
+        cases += 1
+        bsz, s, d = shape
+        bound, by = _bound(2.0 * bsz * s * d, 4 * (3 * bsz * s * d
+                                                   + 2 * bsz * d), "float32")
+        rec = {"b": bsz, "s": s, "d": d, "max_abs_err": e,
+               "max_err_over_scale": r,
+               "kernel_ms": time_ms(lambda: rg.rg_lru(*ins), iters),
+               "kernel_graph_ms": graph_ms(lambda: rg.rg_lru(*ins), iters),
+               "plain_ms": time_ms(lambda: rg.rg_lru_plain(*ins),
+                                   plain_iters, warmup=1),
+               "library_ms": None,
+               "library_note": "none: no single PyTorch call computes a "
+                               "gated linear recurrence",
+               "bound_ms": bound, "bound_by": by}
+        rows[label] = rec
+        emit({"phase": "rglru_kernel", "kernel": "rg_lru", "shape": label,
+              **rec})
+    torch.cuda.synchronize()
+    emit({"phase": "rglru_kernel", "check": f"vs plain, {SSM_TOL} of the "
+          "largest |plain|", "cases": cases, "max_abs_err": worst_abs,
+          "max_err_over_scale": worst_rel})
+    # attention at recurrentgemma-9b's head dim: 16 query heads (its one kv
+    # head repeated) over the 512-token prompt; the decode kernel over 4
+    # slots x 16 heads of the 2048-row ring
+    rng = np.random.default_rng(SEED + 6)
+    d256 = {"flash_attention": [], "decode_attention": []}
+    for dtype in ("bfloat16", "float32"):
+        d256["flash_attention"].append(
+            _flash_case(rng, 16, 512, dtype, True, 30, dev, d=256))
+        d256["decode_attention"].append(
+            _decode_case(rng, LM_SLOTS * 16, 2048, dtype, 50, dev, d=256))
+    torch.cuda.synchronize()
+    for name, recs in d256.items():
+        for rec in recs:
+            emit({"phase": "rglru_kernel", "kernel": name, "head_dim": 256,
+                  **rec})
+    return {"rg_lru": {**rows, "max_abs_err": worst_abs},
+            "d256": {k: v[0] for k, v in d256.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: full-width recurrentgemma-9b served through DecodeEngine
+# ---------------------------------------------------------------------------
+
+def _hybrid_requests(cfg):
+    """The 8 requests of the earlier phases, then one 4096-token prompt."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    reqs = _lm_requests(cfg)
+    rng = np.random.default_rng(SEED + 4)
+    reqs.append(Request(rid=len(reqs), prompt=rng.integers(
+        1, cfg.vocab, HYBRID_LONG).astype(np.int32), max_new=LM_MAX_NEW))
+    return reqs
+
+
+def _hybrid_layer_check(params, cfg, req, dev) -> dict:
+    """Each block of the request's prompt and served tokens, in order: the
+    kernel route (``_rec_block(impl="kernel")``; ``_attn_block(impl=
+    "kernel")``, flash where the sequence fits the window) against the
+    served route's block (the chunked scan; ``impl="chunked"``) on the same
+    input, the served output fed on.  Returns the largest |diff| over the
+    tolerance (HYBRID_BF16_STEPS at the served block's largest |output|)
+    per kind of block."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru
+    from repro_torch.models.transformer import _positions
+    seq = torch.as_tensor(np.concatenate([req.prompt, req.tokens])
+                          .astype(np.int32), device=dev)[None]
+    positions = _positions(1, seq.shape[1], dev)
+    x = L.embed(params["embed"], seq)
+    worst = {"rec": 0.0, "attn": 0.0}
+    for n, (kind, p, _, _) in enumerate(rglru.blocks(params, cfg)):
+        if kind == "rec":
+            got, _ = rglru._rec_block(p, x, cfg, impl="kernel")
+            want, _ = rglru._rec_block(p, x, cfg)
+        else:
+            got, _ = rglru._attn_block(p, x, cfg, positions, "kernel")
+            want, _ = rglru._attn_block(p, x, cfg, positions, "chunked")
+        tol = _bf16_steps(HYBRID_BF16_STEPS, float(want.abs().max()))
+        diff = float((got.float() - want.float()).abs().max())
+        require(diff <= tol, f"rid {req.rid} block {n} ({kind}): the kernel "
+                f"route differs from the served route by {diff} (tol {tol})")
+        worst[kind] = max(worst[kind], diff / tol)
+        x = want
+    return worst
+
+
+def _ring_wrap(zoo, params, eng, req) -> dict:
+    """The long request's slot after serving.  Its prefill filled the
+    w-row K ring (P = the prompt length, a multiple of w, so row j holds
+    position P - w + j); its n decode steps wrote positions P..P+n-1 into
+    rows (P + i) % w = 0..n-1.  Against the same prefill run again, those
+    rows of every attention block must have changed and every other row
+    must be exactly as the prefill left it."""
+    import torch
+    w = eng.cache["attn_k"].shape[3]
+    p_len, n_dec = len(req.prompt), len(req.tokens) - 1
+    final = p_len + n_dec
+    slots = [i for i, pos in enumerate(eng.position.tolist()) if pos == final]
+    require(len(slots) == 1, f"no single slot ended at position {final}: "
+            f"{eng.position.tolist()}")
+    rows = [(p_len + i) % w for i in range(n_dec)]
+    require(p_len >= w and rows[0] == 0,
+            f"the {p_len}-token prompt does not start the ring at row 0")
+    toks = torch.as_tensor(req.prompt, device=eng.device)[None]
+    _, cache1, _ = zoo.prefill(params, {"tokens": toks}, eng.max_len,
+                               impl=eng.impl)
+    before = cache1["attn_k"][:, 0, 0].float()         # [G, w, hd]
+    after = eng.cache["attn_k"][:, slots[0], 0].float()
+    moved = (after - before).abs().amax(-1)             # [G, w]
+    written = torch.zeros(w, dtype=torch.bool, device=eng.device)
+    written[rows] = True
+    require(bool((moved[:, written] > 0).all()),
+            f"ring rows {rows[0]}..{rows[-1]}: a block kept the prefill's K "
+            "(the decode did not write there)")
+    kept = float(moved[:, ~written].max())
+    require(kept == 0.0, f"ring rows past {rows[-1]} changed by {kept} "
+            "(the decode wrote outside rows (P + i) % w)")
+    return {"slot": slots[0], "final_position": final, "ring": w,
+            "rows_written": [rows[0], rows[-1]],
+            "min_change_written": float(moved[:, written].min()),
+            "max_change_elsewhere": kept}
+
+
+def hybrid_profile(zoo, params, prompt) -> dict:
+    """torch.profiler over one served prefill (``impl="kernel"``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        lg, _, _ = zoo.prefill(params, {"tokens": prompt}, HYBRID_MAX_LEN,
+                               impl="kernel")
+        int(lg[0, -1].argmax())
+
+    run()                                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"phase": "hybrid_lm", "profile": f"prefill(impl='kernel') at S = "
+            f"{prompt.shape[1]}", **device_time(prof, wall, "hybrid profile",
+                                                 kernel="flash_fwd")}
+
+
+def phase_hybrid_lm(dev):
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru
+    from repro_torch.models.params import leaves
+    from repro_torch.models.zoo import get_model
+    gc.collect()                                   # the earlier weights
+    torch.cuda.empty_cache()
+    cfg = get_config(HYBRID_ARCH)
+    zoo = timed_zoo(get_model(cfg))
+    t0 = time.perf_counter()
+    params = card_params(zoo.spec(), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = zoo.n_params()
+    require(n_params == HYBRID_N_PARAMS, f"{HYBRID_ARCH}: {n_params} "
+            "parameters")
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    n_rec_pg, n_groups, n_tail = rglru._counts(cfg)
+    n_rec = n_groups * n_rec_pg + n_tail
+
+    # -- the main path: counts at 0 just before, read just after.  Serving,
+    # then the kernel route of every block over each request's tokens, then
+    # the decode kernel over every attention block's served ring.
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    reqs, eng, wall = _serve(zoo, params, max_len=HYBRID_MAX_LEN,
+                             reqs=_hybrid_requests(cfg))
+    served_launches = _lm_launches()
+    serve_peak = torch.cuda.max_memory_allocated()
+    require(eng.impl == "kernel", f"DecodeEngine's default is {eng.impl}")
+    short = [r for r in reqs if len(r.prompt) <= cfg.window]
+    require(served_launches["flash_attention"] == n_groups * len(short),
+            f"served flash_attention launches {served_launches}, want "
+            f"{n_groups} x {len(short)}")
+    require(served_launches["rg_lru"] == 0, "the served route ran the "
+            "rg_lru kernel (the reference's prefill never passes impl)")
+    long_req = reqs[-1]
+    require(long_req.done and len(long_req.tokens) == LM_MAX_NEW,
+            f"the {HYBRID_LONG}-token request was not served")
+    worst = {"rec": 0.0, "attn": 0.0}
+    torch.cuda.reset_peak_memory_stats()
+    for r in reqs:
+        wr = _hybrid_layer_check(params, cfg, r, dev)
+        worst = {k: max(worst[k], wr[k]) for k in worst}
+    gate_peak = torch.cuda.max_memory_allocated()
+    w = eng.cache["attn_k"].shape[3]
+    lengths = torch.clamp(eng.position, 1, w)
+    rng = np.random.default_rng(SEED + 7)
+    qs = [torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, cfg.n_heads, 1, cfg.hd)).astype("float32")).to(
+        dev, torch.bfloat16) for _ in range(n_groups)]
+    dec_out = [ops.decode_mha(qs[g], eng.cache["attn_k"][g],
+                              eng.cache["attn_v"][g], lengths, impl="kernel")
+               for g in range(n_groups)]
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    want = {"rg_lru": n_rec * len(reqs),
+            "flash_attention": 2 * n_groups * len(short),
+            "decode_attention": n_groups}
+    for k, v in want.items():
+        require(launches[k] == v, f"{k} launched {launches[k]} times on "
+                f"the path, want {v}")
+    state = zoo.init_cache(1, HYBRID_MAX_LEN)
+    tokens = sum(len(r.tokens) for r in reqs)
+    emit({"phase": "hybrid_lm", "arch": HYBRID_ARCH, "n_params": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "requests": len(reqs), "max_len": HYBRID_MAX_LEN, "ring": w,
+          "prompt_lens": [len(r.prompt) for r in reqs], "tokens": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall, **eng.stats(),
+          "prefill_ms": zoo.prefill_ms, "decode_ms_per_step": zoo.decode_ms,
+          "max_memory_allocated": serve_peak,
+          "gate_max_memory_allocated": gate_peak,
+          "state_bytes_per_slot": {k: v.numel() * v.element_size()
+                                   for k, v in state.items()},
+          "served_launches": served_launches, "launches": launches})
+    del state
+
+    # -- checks (launches from here on are comparisons, not the path)
+    emit({"phase": "hybrid_lm", "check": "kernel route vs served, per block "
+          "on the same input", "blocks": cfg.n_layers * len(reqs),
+          "bf16_steps": HYBRID_BF16_STEPS, "worst_diff_over_tol": worst})
+    emit({"phase": "hybrid_lm", "check": "the long request's decode wrapped "
+          "the ring", **_ring_wrap(zoo, params, eng, long_req)})
+    errs = []
+    for g in range(n_groups):
+        ref_out = ops.decode_mha(qs[g], eng.cache["attn_k"][g],
+                                 eng.cache["attn_v"][g], lengths, impl="ref")
+        errs.append(float((dec_out[g].float() - ref_out.float()).abs()
+                          .max()))
+        require(errs[-1] <= ATTN_TOL["bfloat16"] * 2,
+                f"decode_mha kernel vs ref on block {g}'s ring: {errs[-1]}")
+    emit({"phase": "hybrid_lm", "check": "decode_mha kernel vs ref over "
+          "each served ring", "lengths": lengths.tolist(),
+          "max_abs_err": max(errs)})
+    # End to end, measured: 38 bf16 blocks of random weights carry a
+    # rounding difference far (the plain forward, whose attention differs
+    # from the served one only in rounding, is the control).
+    e2e = {"kernel": [], "plain": []}
+    agree = {"kernel": 0, "plain": 0}
+    max_logit = 0.0
+    for r in reqs:
+        ls = _served_logits(zoo, params, r, HYBRID_MAX_LEN, impl="kernel")
+        seq = torch.as_tensor(np.concatenate([r.prompt, r.tokens])
+                              .astype(np.int32), device=dev)[None]
+        p = len(r.prompt)
+        for name, impl in (("kernel", "kernel"), ("plain", "chunked")):
+            x = rglru.trunk(params, seq, cfg, impl=impl)
+            lf = L.logits(params["embed"], x[:, p - 1: p - 1 + len(r.tokens)],
+                          cfg)[0, :, :cfg.vocab].float()
+            del x
+            require(bool(torch.isfinite(lf).all()) and lf.shape == ls.shape,
+                    f"rid {r.rid}: {name} forward logits")
+            max_logit = max(max_logit, float(lf.abs().max()))
+            e2e[name].append([float((ls[0] - lf[0]).abs().max()),
+                              float((ls[1:] - lf[1:]).abs().max())])
+            agree[name] += sum(int(t == int(lf[s].argmax()))
+                               for s, t in enumerate(r.tokens))
+    emit({"phase": "hybrid_lm", "end_to_end": "served logits vs forward "
+          "logits [prefill row, decode rows] per request",
+          "max_abs_logit": max_logit, "kernel_forward": e2e["kernel"],
+          "plain_forward": e2e["plain"], "greedy_tokens_equal": agree,
+          "tokens": tokens})
+
+    emit(hybrid_profile(zoo, params, torch.as_tensor(
+        reqs[0].prompt, device=dev)[None]))
+
+    # -- the CLI entry point for this architecture, in process, on the card
+    del params, eng, dec_out, qs
+    gc.collect()
+    t0 = time.perf_counter()
+    res = launch_serve.main(["--arch", HYBRID_ARCH])
+    emit({"phase": "hybrid_lm", "entry": "repro_torch.launch.serve.main",
+          "arch": HYBRID_ARCH, "preset": "reduced",
+          "seconds": time.perf_counter() - t0, **res})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = {
     "stream_compact": {
@@ -1246,6 +1651,9 @@ KERNEL_ROWS = {
     "ssm_scan": {
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:23"},
+    "rg_lru": {
+        "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+        "replaces": "src/repro/kernels/rg_lru.py:20"},
 }
 
 
@@ -1292,11 +1700,20 @@ def main() -> int:
     lm = timed("lm", phase_lm)
     timings.update(timed("ssm_kernel", phase_ssm_kernel, dev))
     ssm_lm = timed("ssm_lm", phase_ssm_lm, dev)
+    rg = timed("rglru_kernel", phase_rglru_kernel, dev)
+    timings["rg_lru"] = rg["rg_lru"]
+    for name, rec in rg["d256"].items():
+        timings[name]["d256"] = rec
+    hybrid = timed("hybrid_lm", phase_hybrid_lm, dev)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",
                                         "decode_attention")})
     launches["ssm_scan"] = ssm_lm["ssm_scan"]
+    launches["rg_lru"] = hybrid["rg_lru"]
+    # each LM path's own run, counted from 0 (the line's ``launches`` is the
+    # first path that runs the kernel)
+    by_path = {"lm": lm, "ssm_lm": ssm_lm, "hybrid_lm": hybrid}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1312,6 +1729,8 @@ def main() -> int:
             "max_abs_err": timings[name].get("max_abs_err", max(
                 timings[name][k]["max_abs_err"] for k in ("path", "large"))),
             "ms": path["kernel_ms"], "plain_ms": path["plain_ms"],
+            **({"graph_ms": path["kernel_graph_ms"]}
+               if "kernel_graph_ms" in path else {}),
             "bound_ms": path["bound_ms"],
             "bound_by": path.get("bound_by", "bytes"),
             "library_ms": path["library_ms"],
@@ -1320,7 +1739,12 @@ def main() -> int:
             "shape": {k: path[k] for k in ("b", "n", "d", "di", "emitted",
                                            "bh", "sq", "skv", "s", "dtype",
                                            "causal") if k in path},
-            "large": timings[name]["large"]})
+            "large": timings[name]["large"],
+            **({"head_dim_256": timings[name]["d256"]}
+               if "d256" in timings[name] else {}),
+            **({"launches_by_path": {p: c[name] for p, c in by_path.items()
+                                     if c.get(name)}}
+               if name in _lm_kernels() else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@
 // row and the kv axis becomes a loop inside it.
 //
 // Contract: q [BH, 1, D], k/v [BH, S, D], lengths [BH] int32, row-major,
-// q/k/v all float32 or all bfloat16, D in {16, 32, 64, 128}, any S.
+// q/k/v all float32 or all bfloat16, D in {16, 32, 64, 128, 256}, any S.
 //   out[r] = softmax over keys j < lengths[r] of q.k_j / sqrt(D), times v,
 // accumulated in float32, in q's type.  As in the reference, a length past
 // S means all S keys, and a length <= 0 masks every key (score -1e30), which
@@ -16,7 +16,8 @@
 //
 // Layout: 256 threads per row.  A group of D/8 lanes takes one key at a
 // time, each lane 8 consecutive elements (one 16-byte load in bfloat16), so
-// the groups of a warp read consecutive cache rows; groups stride over the
+// the groups of a warp read consecutive cache rows (at D = 256 a group is
+// the whole warp, and the shuffle tree spans it); groups stride over the
 // keys four at a time (all loads of the four keys issue before any math,
 // to keep enough bytes in flight).  Each group sums its partial dots with
 // shuffles and keeps its own running max, sum and 8-wide accumulator (an
@@ -47,7 +48,7 @@ __global__ void __launch_bounds__(kBlock)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
               T* __restrict__ out, int s_len, float scale) {
-  constexpr int kGroupLanes = D / kElems;            // 2, 4, 8 or 16
+  constexpr int kGroupLanes = D / kElems;            // 2, 4, 8, 16 or 32
   constexpr int kGroups = kBlock / kGroupLanes;
   __shared__ float m_s[kGroups], l_s[kGroups];
   __shared__ __align__(16) float acc_s[kGroups][D];
@@ -153,6 +154,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       break;
     case 128:
       decode_kernel<128, T><<<bh, kBlock, 0, s>>>(qp, kp, vp, lp, op, s_len,
+                                                  scale);
+      break;
+    case 256:
+      decode_kernel<256, T><<<bh, kBlock, 0, s>>>(qp, kp, vp, lp, op, s_len,
                                                   scale);
       break;
     default:

@@ -8,22 +8,25 @@
 // the kv axis is a loop inside the block and the carry lives in registers.
 //
 // Contract: q [BH, Sq, D], k/v [BH, Skv, D], row-major, all float32 or all
-// bfloat16, D in {16, 32, 64, 128}.  out [BH, Sq, D] in q's type:
+// bfloat16, D in {16, 32, 64, 128, 256}.  out [BH, Sq, D] in q's type:
 //   out = softmax(q k^T / sqrt(D), masked) v, accumulated in float32,
 // with the reference kernel's causal rule k_idx <= q_idx (top-left), masked
 // scores -1e30 (never -inf), and out = acc / max(l, 1e-30).  Any Sq and
 // Skv: the ragged edge is masked (the reference asserts whole blocks).
 //
-// Layout: one block of 256 threads per (bh, tile of 64 query rows); four
-// threads per row, each holding a quarter of the row's q and accumulator
-// in registers (dims c*16 + lane*4 .. +3 for chunk c, so the four threads
-// of a row read one contiguous 64-byte run of a shared-memory K/V row).
-// The block stages K/V tiles (64 keys for D <= 64, 32 for D = 128: 32 KB
-// of float32) in shared memory; each thread forms its partial dot products
-// for the tile, the four threads of a row sum them by two shuffles, and the
-// row's online softmax rescales the accumulator once per tile.  Causal
-// blocks skip the K/V tiles that lie wholly above their last row, and the
-// grid issues the heaviest (last) query tiles first.
+// Layout: one block of 256 threads per (bh, tile of query rows); L threads
+// per row (L = 4 up to D = 128, 64 rows a block; L = 8 at D = 256, 32 rows
+// a block, so that a thread still holds only 32 floats of q and 32 of the
+// accumulator in registers), each holding 1/L of the row's q and
+// accumulator (dims c*4L + lane*4 .. +3 for chunk c, so the L threads of a
+// row read one contiguous 16L-byte run of a shared-memory K/V row).  The
+// block stages K/V tiles of float32 in shared memory (64 keys for D <= 64,
+// 32 for D = 128, 16 for D = 256: at most 32 KB, under the 48 KB of static
+// shared memory); each thread forms its partial dot products for the tile,
+// the L threads of a row sum them by log2(L) shuffles, and the row's online
+// softmax rescales the accumulator once per tile.  Causal blocks skip the
+// K/V tiles that lie wholly above their last row, and the grid issues the
+// heaviest (last) query tiles first.
 //
 // Products are scalar float32 FMAs (QK^T and PV both inside the kernel).
 // Bound: operations.  The function needs 4*BH*Sq*Skv*D flops (half that
@@ -40,18 +43,27 @@ namespace {
 
 using attn::kNegInf;
 
-constexpr int kRows = 64;                    // query rows per block
-constexpr int kLanes = 4;                    // threads per query row
-constexpr int kBlock = kRows * kLanes;       // 256 threads
+constexpr int kBlock = 256;                  // threads per block
+
+// threads per query row, and query rows per block, at head dim D
+__host__ __device__ constexpr int lanes_for(int d) {
+  return d <= 128 ? 4 : 8;
+}
+__host__ __device__ constexpr int rows_for(int d) {
+  return kBlock / lanes_for(d);
+}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kBlock)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int sq,
                  int skv, float scale, int causal) {
-  constexpr int kKeys = D <= 64 ? 64 : 32;   // keys per staged K/V tile
+  constexpr int kLanes = lanes_for(D);
+  constexpr int kRows = rows_for(D);
+  constexpr int kKeys = D <= 64 ? 64 : D <= 128 ? 32 : 16;  // staged keys
   constexpr int kPer = D / kLanes;           // dims per thread
   constexpr int kChunks = kPer / 4;          // float4 chunks per thread
+  constexpr int kSpan = 4 * kLanes;          // dims of one chunk of a row
   constexpr int kVecs = kKeys * D / 4;       // float4s per staged tile
   __shared__ __align__(16) float ks[kKeys][D];
   __shared__ __align__(16) float vs[kKeys][D];
@@ -68,7 +80,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const float4 x = row_ok
-        ? attn::load4(q + (bh * sq + qi) * D + c * 16 + lane * 4)
+        ? attn::load4(q + (bh * sq + qi) * D + c * kSpan + lane * 4)
         : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[4 * c] = x.x; qr[4 * c + 1] = x.y;
     qr[4 * c + 2] = x.z; qr[4 * c + 3] = x.w;
@@ -101,14 +113,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         const float4 kx =
-            *reinterpret_cast<const float4*>(&ks[j][c * 16 + lane * 4]);
+            *reinterpret_cast<const float4*>(&ks[j][c * kSpan + lane * 4]);
         part = fmaf(qr[4 * c], kx.x, part);
         part = fmaf(qr[4 * c + 1], kx.y, part);
         part = fmaf(qr[4 * c + 2], kx.z, part);
         part = fmaf(qr[4 * c + 3], kx.w, part);
       }
-      part += __shfl_xor_sync(kFull, part, 1);
-      part += __shfl_xor_sync(kFull, part, 2);
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1)
+        part += __shfl_xor_sync(kFull, part, o);
       const int kk = k0 + j;
       const bool ok = kk < skv && (!causal || kk <= qi);
       s[j] = ok ? part * scale : kNegInf;
@@ -127,7 +140,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         const float4 vx =
-            *reinterpret_cast<const float4*>(&vs[j][c * 16 + lane * 4]);
+            *reinterpret_cast<const float4*>(&vs[j][c * kSpan + lane * 4]);
         acc[4 * c] = fmaf(p, vx.x, acc[4 * c]);
         acc[4 * c + 1] = fmaf(p, vx.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(p, vx.z, acc[4 * c + 2]);
@@ -144,7 +157,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + (bh * sq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      attn::store4(o + c * 16 + lane * 4,
+      attn::store4(o + c * kSpan + lane * 4,
                    make_float4(acc[4 * c] / denom, acc[4 * c + 1] / denom,
                                acc[4 * c + 2] / denom,
                                acc[4 * c + 3] / denom));
@@ -152,36 +165,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D, typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
+                     int bh, int sq, int skv, float scale, int causal,
+                     cudaStream_t s) {
+  constexpr int kRows = rows_for(D);
+  const dim3 grid((sq + kRows - 1) / kRows, bh);
+  flash_fwd_kernel<D, T><<<grid, kBlock, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int bh, int sq, int skv, int d, float scale, int causal,
                    cudaStream_t s) {
-  const dim3 grid((sq + kRows - 1) / kRows, bh);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
   switch (d) {
     case 16:
-      flash_fwd_kernel<16, T><<<grid, kBlock, 0, s>>>(qp, kp, vp, op, sq,
-                                                      skv, scale, causal);
-      break;
+      return launch_d<16, T>(q, k, v, out, bh, sq, skv, scale, causal, s);
     case 32:
-      flash_fwd_kernel<32, T><<<grid, kBlock, 0, s>>>(qp, kp, vp, op, sq,
-                                                      skv, scale, causal);
-      break;
+      return launch_d<32, T>(q, k, v, out, bh, sq, skv, scale, causal, s);
     case 64:
-      flash_fwd_kernel<64, T><<<grid, kBlock, 0, s>>>(qp, kp, vp, op, sq,
-                                                      skv, scale, causal);
-      break;
+      return launch_d<64, T>(q, k, v, out, bh, sq, skv, scale, causal, s);
     case 128:
-      flash_fwd_kernel<128, T><<<grid, kBlock, 0, s>>>(qp, kp, vp, op, sq,
-                                                       skv, scale, causal);
-      break;
+      return launch_d<128, T>(q, k, v, out, bh, sq, skv, scale, causal, s);
+    case 256:
+      return launch_d<256, T>(q, k, v, out, bh, sq, skv, scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -28,7 +28,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)          # one template instance each
+HEAD_DIMS = (16, 32, 64, 128, 256)     # one template instance each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535                        # grid.y
 

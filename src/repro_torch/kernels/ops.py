@@ -25,10 +25,11 @@ hand-written ``flash_attention`` / ``decode_attention`` kernels on a CUDA
 tensor and runs their plain torch versions on a CPU tensor.  ``"chunked"``
 and ``"ref"`` keep their meaning.  The flash backwards come with training.
 
-Recurrences (the reference's ``kernels/ops.py:862-929``): ``ssm`` with
-``impl="kernel"`` launches the hand-written ``ssm_scan`` kernel (its plain
-torch loop on a CPU tensor); ``ssm_assoc`` and ``ssm_chunked`` are the
-reference's associative-scan formulations in plain torch, taking any S.
+Recurrences (the reference's ``kernels/ops.py:862-979``): ``ssm`` and
+``rg_lru_scan`` with ``impl="kernel"`` launch the hand-written ``ssm_scan``
+and ``rg_lru`` kernels (their plain torch loops on a CPU tensor);
+``ssm_assoc``, ``ssm_chunked``, ``rg_lru_assoc`` and ``rg_lru_chunked`` are
+the reference's associative-scan formulations in plain torch, taking any S.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .rg_lru import rg_lru
 from .segment_reduce import segment_reduce
 from .ssm_scan import ssm_scan
 from .stream_compact import stream_compact
@@ -451,4 +453,47 @@ def ssm_chunked(x, dt, a, b, c, d, h0, chunk: int = 128):
         y, h = _scan_block(dtf, dtf * xf, af, b[:, cut].to(f32),
                            c[:, cut].to(f32), dsk * xf, h)
         ys.append(y.to(x.dtype))
+    return torch.cat(ys, 1), h
+
+
+def rg_lru_scan(a, b, h0, impl: str = "kernel"):
+    """RG-LRU diagonal gated scan ``h_t = a_t·h_{t-1} + b_t``. a/b
+    [B, S, D]; h0 [B, D] -> (y [B, S, D], hT [B, D]).
+
+    ``"kernel"`` (the reference's ``"pallas"``) calls ``rg_lru``, which
+    takes float32 only; any other impl runs :func:`rg_lru_assoc`, as the
+    reference's does."""
+    if impl == "kernel":
+        return rg_lru(a.contiguous(), b.contiguous(), h0.contiguous())
+    return rg_lru_assoc(a, b, h0)
+
+
+def _rg_lru_block(a, b, h):
+    """One block of the associative formulation, float32: a/b [B, C, D],
+    entering state h [B, D] -> every state of the block [B, C, D]."""
+    b = torch.cat([b[:, :1] + a[:, :1] * h[:, None], b[:, 1:]], 1)
+    return _assoc_scan(a, b)[1]
+
+
+def rg_lru_assoc(a, b, h0):
+    """Associative scan over the whole sequence: (y in a's dtype, hT
+    float32)."""
+    f32 = torch.float32
+    h = _rg_lru_block(a.to(f32), b.to(f32), h0.to(f32))
+    return h.to(a.dtype), h[:, -1]
+
+
+def rg_lru_chunked(a, b, h0, chunk: int = 256):
+    """The scan in sequence chunks of ``chunk`` steps, carrying only the
+    [B, D] state between them.  Any S: the last chunk is just shorter (the
+    reference asserts S % chunk == 0), which is exact.  Returns (y in a's
+    dtype, hT float32), the reference's cast points."""
+    f32 = torch.float32
+    h = h0.to(f32)
+    ys = []
+    for t0 in range(0, a.shape[1], chunk):
+        cut = slice(t0, t0 + chunk)
+        hh = _rg_lru_block(a[:, cut].to(f32), b[:, cut].to(f32), h)
+        h = hh[:, -1]
+        ys.append(hh.to(a.dtype))
     return torch.cat(ys, 1), h

@@ -1,8 +1,8 @@
 """Plain torch oracles for the port's kernels.
 
 Each function is the semantic ground truth the kernels and the plain paths
-are held to, on any device: attention and the Mamba-1 selective scan so
-far; the others come with their kernels.
+are held to, on any device: attention, the Mamba-1 selective scan and the
+RG-LRU diagonal scan so far; the others come with their kernels.
 """
 from __future__ import annotations
 
@@ -46,4 +46,19 @@ def ssm_scan_ref(x, dt, a, b, c, d, h0):
         da = torch.exp(dt[:, t, :, None] * a)
         h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
         y[:, t] = (h * c[:, t, None, :]).sum(-1) + d * x[:, t]
+    return y, h
+
+
+# -- rg_lru -------------------------------------------------------------------
+
+def rg_lru_ref(a, b, h0):
+    """Sequential reference of the diagonal gated scan ``h_t = a_t * h_{t-1}
+    + b_t``, in float64, on the inputs' device.  a/b [B, S, D]; h0 [B, D]
+    -> (y [B, S, D], hT [B, D]), both float64."""
+    a, b = a.double(), b.double()
+    h = h0.double().clone()
+    y = torch.zeros_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = h
     return y, h

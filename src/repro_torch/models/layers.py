@@ -8,6 +8,9 @@ Attention implementations (``impl``):
   * "kernel"  — the hand-written flash attention kernel on a CUDA tensor,
                 its plain torch version on a CPU tensor (the reference's
                 "pallas" route).
+With a window shorter than the sequence, ``attention`` runs the banded
+``_windowed_attention`` in plain torch whatever the impl (the reference has
+no kernel for it).
 """
 from __future__ import annotations
 
@@ -133,22 +136,61 @@ def attention(p, x, cfg: ModelConfig, positions=None, impl="chunked",
     """Self (or cross, via kv_override=(k, v)) attention over full sequences
     (train/prefill). Returns (out [B,S,D_model], (k, v) for caching).
 
+    With ``window`` and S > window, every impl runs the banded
+    :func:`_windowed_attention` (the reference's ``"naive"`` computes full
+    attention first and then overwrites it with the banded result; the port
+    skips the wasted work).  Otherwise ``ops.mha`` with ``impl``.
+
     The reference reshards the batch over (data x model) here when the head
     count does not divide a model mesh axis.  On one device the model axis
     is 1 (no active mesh), so that branch never runs, and the port leaves
     it out; it returns with the distribution slice."""
-    if window:
-        raise NotImplementedError(
-            "local (windowed) attention comes with the hybrid family "
-            "(ROADMAP Queue 1 item 5, models/rglru.py)")
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     if kv_override is not None:
         k, v = kv_override
-    out = kops.mha(q, k, v, causal=causal,
-                   impl="ref" if impl == "naive" else impl)
+    if window and s > window:
+        out = _windowed_attention(q, k, v, window)
+    else:
+        out = kops.mha(q, k, v, causal=causal,
+                       impl="ref" if impl == "naive" else impl)
     out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
     return out @ p["wo"], (k, v)
+
+
+def _windowed_attention(q, k, v, window: int):
+    """Banded causal attention: each query block attends to its own and the
+    previous KV block (block = window), masked to the exact window — O(S·W).
+    q [B, Hq, S, D], k/v [B, Hkv, S, D] (kv heads repeated to q's), float32
+    scores and softmax, out in q's dtype.  Any S >= 1: the last block is
+    padded with zeros, which the causal mask hides from every real query
+    (the reference reshapes S into whole windows)."""
+    b, hq, s, d = q.shape
+    k, v = kops._match_heads(k, hq), kops._match_heads(v, hq)
+    blk = window
+    nb = -(-s // blk)
+    pad = nb * blk - s
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    qb = q.reshape(b, hq, nb, blk, d)
+    kb = k.reshape(b, hq, nb, blk, d)
+    vb = v.reshape(b, hq, nb, blk, d)
+    kprev = torch.cat([torch.zeros_like(kb[:, :, :1]), kb[:, :, :-1]], 2)
+    vprev = torch.cat([torch.zeros_like(vb[:, :, :1]), vb[:, :, :-1]], 2)
+    k2 = torch.cat([kprev, kb], 3)                  # [b,h,nb,2W,d]
+    v2 = torch.cat([vprev, vb], 3)
+    sc = torch.einsum("bhnqd,bhnkd->bhnqk", qb.float(), k2.float()) \
+        * (1.0 / d ** 0.5)
+    qi = torch.arange(blk, device=q.device)[:, None] + blk  # in the 2W frame
+    ki = torch.arange(2 * blk, device=q.device)[None, :]
+    ok = (ki <= qi) & (ki > qi - window)
+    first = torch.arange(nb, device=q.device) == 0  # no prev block for blk 0
+    mask = torch.where(first[:, None, None], (ok & (ki >= blk))[None],
+                       ok[None])
+    sc = torch.where(mask[None, None], sc, -1e30)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhnqk,bhnkd->bhnqd", pr, v2.float())
+    return out.reshape(b, hq, nb * blk, d)[:, :, :s].to(q.dtype)
 
 
 def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
@@ -156,7 +198,9 @@ def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
     """One-token decode. x [B, 1, D]; cache [B, Hkv, S, hd]; position [B].
     Returns (out, new_cache_k, new_cache_v).  The attention over the cache
     is ``decode_mha(impl="ref")`` whatever ``impl`` says, as in the
-    reference."""
+    reference.  With ``window`` the cache is a ring: the new row goes to
+    ``position % S`` and the valid length is ``min(position + 1, window)``
+    (a length past S means every row)."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, position[:, None])
     s_cache = cache_k.shape[2]

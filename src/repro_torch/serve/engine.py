@@ -139,10 +139,27 @@ class DecodeEngine:
 
 
 def _splice_cache(batch_cache, single_cache, slot: int):
-    """Insert a prefilled batch=1 cache into lane ``slot`` (a new cache)."""
+    """Insert a prefilled batch=1 cache into lane ``slot`` (a new cache).
+
+    As ``lax.dynamic_update_slice_in_dim`` does in the reference, a source
+    shorter than the slot along another axis (a hybrid's K/V window of a
+    prompt shorter than the ring, a conv tail of a prompt shorter than
+    K-1) fills the leading sub-block of the slot and leaves the rest as it
+    was; a longer one raises."""
     out = {}
     for k, v in batch_cache.items():
+        ax = _BATCH_AXIS[k]
+        src = single_cache[k]
+        dst = v.narrow(ax, slot, 1)
+        if src.dim() != v.dim() or src.shape[ax] != 1 or any(
+                n > m for n, m in zip(src.shape, dst.shape)):
+            raise ValueError(f"_splice_cache: {k!r} of shape "
+                             f"{tuple(src.shape)} does not fit a slot of "
+                             f"{tuple(dst.shape)}")
         o = v.clone()
-        o.narrow(_BATCH_AXIS[k], slot, 1).copy_(single_cache[k].to(v.dtype))
+        dst = o.narrow(ax, slot, 1)
+        for axis, n in enumerate(src.shape):
+            dst = dst.narrow(axis, 0, n)
+        dst.copy_(src.to(v.dtype))
         out[k] = o
     return out

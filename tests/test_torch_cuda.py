@@ -5,7 +5,8 @@ These tests import neither jax nor the JAX package, so they run on a
 machine with only the port's dependencies.  Without a card they skip: the
 kernels have no CPU mode.  The executor kernels' outputs are int32, so
 equality is exact; the attention and scan kernels are held to stated
-tolerances.
+tolerances (the RG-LRU scan rounds as its plain loop does, so it is held
+to exact equality).
 """
 import numpy as np
 import pytest
@@ -94,7 +95,7 @@ def test_cuda_torch_backend_runs_an_app_on_the_card(cuda_device):
 # rounds the output)
 # ---------------------------------------------------------------------------
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -283,3 +284,95 @@ def test_cuda_ssm_model_runs_the_kernel(cuda_device):
     eng.run_until_drained()
     assert all(r.done and len(r.tokens) == 6 for r in reqs)
     assert eng.cache["conv"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# rg_lru (float32: each step rounds the product and then the sum, as the
+# plain loop does, so the two agree bit for bit)
+# ---------------------------------------------------------------------------
+
+def _rg_lru_inputs(gen, bsz, s, d, zero_h0, device):
+    """a in [0, 1), b ~ 0.1 N(0, 1), as the reference's kernel tests."""
+    a = torch.rand((bsz, s, d), generator=gen, device=device)
+    b = 0.1 * torch.randn((bsz, s, d), generator=gen, device=device)
+    h0 = (torch.zeros(bsz, d, device=device) if zero_h0
+          else torch.randn((bsz, d), generator=gen, device=device))
+    return a, b, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (1, 33, 100, 4096))
+def test_cuda_rg_lru_matches_plain(cuda_device, d):
+    from repro_torch.kernels import rg_lru as rg
+    gen = torch.Generator(cuda_device).manual_seed(d)
+    for s in (0, 1, 7, 8, 63, 64, 100, 513):
+        for bsz in (1, 3):
+            for zero_h0 in (True, False):
+                ins = _rg_lru_inputs(gen, bsz, s, d, zero_h0, cuda_device)
+                before = rg.rg_lru.launches
+                got = rg.rg_lru(*ins)
+                assert rg.rg_lru.launches == before + 1
+                want = rg.rg_lru_plain(*ins)
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape and g.dtype == torch.float32
+                    assert torch.equal(g, w), (s, bsz, d, zero_h0)
+
+
+@pytest.mark.cuda
+def test_cuda_rg_lru_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rg_lru import rg_lru
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    a, b, h0 = _rg_lru_inputs(gen, 2, 8, 64, False, cuda_device)
+    before = rg_lru.launches
+    with pytest.raises(TypeError, match="float32"):
+        rg_lru(a.bfloat16(), b, h0)
+    with pytest.raises(TypeError, match="float32"):
+        ops.rg_lru_scan(a.bfloat16(), b.bfloat16(), h0, impl="kernel")
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_lru(a.transpose(0, 1).contiguous().transpose(0, 1), b, h0)
+    with pytest.raises(ValueError, match="h0"):
+        rg_lru(a, b, h0[:, :4])
+    assert rg_lru.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_model_runs_the_kernels(cuda_device):
+    """Reduced recurrentgemma-9b (head dim 16, window 32) on the card:
+    ``_rec_block(impl="kernel")`` launches the scan and agrees with the
+    served chunked route; ``DecodeEngine()`` serves prompts shorter and
+    longer than the window, launching flash once per attention block of
+    each prompt that fits the window."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rg_lru
+    from repro_torch.models import rglru
+    from repro_torch.models.zoo import get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = get_reduced("recurrentgemma-9b")
+    zoo = get_model(cfg)
+    params = zoo.init_params(0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 150, cfg.d_model)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    _, p, _, _ = next(rglru.blocks(params, cfg))
+    before = rg_lru.launches
+    got, (h, _) = rglru._rec_block(p, x, cfg, impl="kernel")
+    assert rg_lru.launches == before + 1
+    want, (wh, _) = rglru._rec_block(p, x, cfg)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    torch.testing.assert_close(h, wh, atol=1e-5, rtol=1e-5)
+    lens = (5, 20, 31, 70, 12)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(
+        np.int32), max_new=6) for i, n in enumerate(lens)]
+    eng = DecodeEngine(zoo, params, batch_slots=3, max_len=128)
+    for r in reqs:
+        eng.submit(r)
+    before = flash_attention.launches
+    eng.run_until_drained()
+    _, n_groups, _ = rglru._counts(cfg)
+    assert flash_attention.launches - before == n_groups * sum(
+        n <= cfg.window for n in lens)
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+    assert eng.cache["attn_k"].shape[3] == cfg.window

@@ -39,13 +39,17 @@ def test_port_imports_without_jax_or_reference():
         leaked = sorted(k for k, v in sys.modules.items() if v is not None
                         and (k.split(".")[0] in ("jax", "jaxlib", "repro")))
         assert not leaked, leaked
-        print(len(mods))
+        print(" ".join(mods))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30          # every module was walked
+    walked = out.stdout.split()
+    assert len(walked) >= 30                      # every module was walked
+    for mod in ("models.rglru", "kernels.rg_lru", "models.ssm",
+                "kernels.ssm_scan", "serve.engine", "launch.serve"):
+        assert f"repro_torch.{mod}" in walked
 
 
 def test_torch_backend_does_not_fall_back_to_cpu(monkeypatch):

@@ -129,7 +129,7 @@ def test_entry_points_default_to_the_card(monkeypatch, reduced):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_reduced("recurrentgemma-9b"))
+        get_model(get_reduced("olmoe-1b-7b"))
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +296,15 @@ def test_layers_match_reference(reduced32):
         _close(gv, wv, 1e-5)
     _close(layers.mlp(lp["mlp"], _t(x), cfg),
            ref_layers.mlp(rlp["mlp"], _j(x), rcfg), 1e-4)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        layers.attention(lp["attn"], _t(x), cfg, window=4)
+    # a window shorter than S: the banded path, whatever the impl
+    for impl, rimpl in (("kernel", "pallas"), ("naive", "naive")):
+        got, _ = layers.attention(lp["attn"], _t(x), cfg,
+                                  torch.from_numpy(positions), impl,
+                                  window=4)
+        want, _ = ref_layers.attention(rlp["attn"], _j(x), rcfg,
+                                       jnp.asarray(positions), rimpl,
+                                       window=4)
+        _close(got, want, 1e-4)
 
 
 # ---------------------------------------------------------------------------
