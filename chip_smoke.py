@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor, and
-dense-LM, SSM and hybrid serving) on one CUDA card and check it end to end.
+"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor, the
+hash probe, and dense-LM, SSM, hybrid and MoE serving) on one CUDA card and
+check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -63,7 +64,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              end-to-end logits beside a plain control, reported; a
              torch.profiler window over one 512-token prefill; then
              ``launch.serve.main`` for recurrentgemma-9b (reduced preset).
+11. hash_kernel — the hash_probe kernel against its plain version, exactly,
+             over n_slots in {128, 1000, 1024, 2^16, 2^20, 2^24} at loads
+             0.25 and 0.5 and N in {1, 255, 256, 257, 2^20, 2^24} (half
+             hits, half misses, negative keys); the path: ``ops.hash_lookup``
+             over the hash_table app's own tables (benchmark size and 16x)
+             with the app's queries, equal to its expected results; times at
+             the app at 16x and at 2^24 slots and keys beside the bound.
+12. moe_kernel — the moe_dispatch kernel against its plain version, bit for
+             bit, in bf16 and float32, over A in {1, 7, 256, 4096}, D in
+             {32, 100, 2048}, E in {8, 64} and capacities that drop 0%,
+             ~20% and ~90% of the rows; times at olmoe's 512-token prefill
+             and at a large shape beside the bound and ``index_put_``.
+13. moe_lm — full-width, full-depth olmoe-1b-7b (random weights drawn on
+             the card) served by ``DecodeEngine`` on the 8 requests; then
+             each request walked teacher-forced, layer by layer: the MoE FF
+             through ``ops.moe_dispatch_combine(impl="kernel")`` equal bit
+             for bit to the served scatter route, flash attention within 8
+             bf16 steps of the plain route; the decode kernel over every
+             layer's served cache (head dim 128); a torch.profiler window
+             over one 512-token prefill on the kernel route; then
+             ``launch.serve.main`` for olmoe-1b-7b (reduced preset).
 
+The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -141,6 +164,25 @@ HYBRID_LONG = 4096                 # the prompt past the window
 # same input (teacher-forced per block): the two scans (or attentions)
 # differ in float32 rounding, which flips a bf16 rounding here and there
 HYBRID_BF16_STEPS = 8
+
+# the hash probe: the sweep, the reference's default probe limit, and the
+# L2 size past which a table's sectors are counted per probe in the bound
+HASH_SLOTS = (128, 1000, 1024, 1 << 16, 1 << 20, 1 << 24)
+HASH_LOADS = (0.25, 0.5)
+HASH_NS = (1, 255, 256, 257, 1 << 20, 1 << 24)
+HASH_LARGE = 1 << 24               # slots, and keys probed, at load 0.5
+HASH_MAX_PROBES = 16
+L2_BYTES = 50e6
+
+# the MoE dispatch at olmoe-1b-7b's 512-token prefill (A = 512 x top-8,
+# D 2048, 64 experts, capacity(cfg, 512) = 80) and at 8192 tokens
+MOE_PATH = (512, 8, 2048, 64, 80)          # (T, K, D, E, C)
+MOE_LARGE = (8192, 8, 2048, 64, 1280)
+MOE_ARCH = "olmoe-1b-7b"
+MOE_N_PARAMS = 6919624704          # 16 layers, d 2048, 64 experts top-8
+# each layer's attention through flash against the plain route on the same
+# input (teacher-forced per layer): bf16 rounding in another order
+MOE_ATTN_BF16_STEPS = 8
 
 PATH_LANES = (1, 127, 128, 129, 512)
 LARGE_N = 1 << 24
@@ -704,10 +746,19 @@ def phase_attention(dev):
                                    dev))
     flash.append(_flash_case(rng, 56, 4096, "bfloat16", True, 3, dev))
     decode.append(_decode_case(rng, 56, 32768, "bfloat16", 10, dev))
+    # olmoe-1b-7b's heads: 16 of 128 over the 512-token prompt; the decode
+    # kernel over LM_SLOTS slots x 16 heads of the LM_MAX_LEN cache
+    d128 = {"flash_attention": [], "decode_attention": []}
+    for dtype in ("bfloat16", "float32"):
+        d128["flash_attention"].append(
+            _flash_case(rng, 16, 512, dtype, True, 30, dev, d=128))
+        d128["decode_attention"].append(
+            _decode_case(rng, LM_SLOTS * 16, LM_MAX_LEN, dtype, 50, dev,
+                         d=128))
     torch.cuda.synchronize()
     for name, rows in (("flash_attention", flash),
                        ("decode_attention", decode)):
-        for r in rows:
+        for r in rows + d128[name]:
             emit({"phase": "attention", "kernel": name, **r})
     return {"flash_attention": {
                 "path": next(r for r in flash if r["sq"] == 512
@@ -718,7 +769,8 @@ def phase_attention(dev):
             "decode_attention": {
                 "path": decode[0], "large": decode[-1], "max_abs_err": max(
                     r["max_abs_err"] for r in decode if r["dtype"] ==
-                    "bfloat16")}}
+                    "bfloat16")},
+            "d128": {k: v[0] for k, v in d128.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -726,13 +778,18 @@ def phase_attention(dev):
 # ---------------------------------------------------------------------------
 
 def _lm_kernels():
+    """The kernels reached through the LM stack and the ops entry points
+    (the executor's two are ``_launches``)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hash_probe import hash_probe
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
     from repro_torch.kernels.rg_lru import rg_lru
     from repro_torch.kernels.ssm_scan import ssm_scan
     return {"flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssm_scan": ssm_scan,
-            "rg_lru": rg_lru}
+            "rg_lru": rg_lru, "moe_dispatch": moe_dispatch,
+            "hash_probe": hash_probe}
 
 
 def _lm_launches():
@@ -1634,6 +1691,545 @@ def phase_hybrid_lm(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the hash_probe kernel against its plain version, and the app
+# ---------------------------------------------------------------------------
+
+def _hash_table(gen, n_slots, load, dev):
+    """An n_slots open-addressing table at ``load`` of distinct odd int32
+    keys (negative ones too; misses are drawn even, so never stored), built
+    on the card by rounds of linear probing: each unplaced key tries its next
+    slot, one claimant per empty slot wins, the others move on.  Every slot
+    from a key's home to its place ends up occupied, which is what a lookup
+    needs.  Returns (keys, table_k, table_v), the tables duplicated to
+    2 * n_slots as the reference pads them."""
+    import torch
+    from repro_torch.kernels.hash_probe import _mix
+    n_keys = max(1, int(n_slots * load))
+    keys = torch.empty(0, dtype=torch.int64, device=dev)
+    while keys.numel() < n_keys:
+        more = torch.randint(-(1 << 31), 1 << 31, (2 * n_keys,), generator=gen,
+                             device=dev, dtype=torch.int64) | 1
+        keys = torch.unique(torch.cat([keys, more]))
+    keys = keys[torch.randperm(keys.numel(), generator=gen, device=dev)
+                [:n_keys]].to(torch.int32)
+    tk = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    tv = torch.zeros_like(tk)
+    vals = torch.randint(1, 1 << 30, (n_keys,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot = _mix(keys) % n_slots
+    todo = torch.arange(n_keys, device=dev)
+    while todo.numel():
+        s = slot[todo]
+        free = tk[s] == 0
+        claim = torch.full((n_slots,), n_keys, device=dev, dtype=torch.long)
+        claim.scatter_reduce_(0, s[free], todo[free], "amin")
+        won = free & (claim[s] == todo)
+        tk[s[won]], tv[s[won]] = keys[todo[won]], vals[todo[won]]
+        todo = todo[~won]
+        slot[todo] = (slot[todo] + 1) % n_slots
+    return keys, torch.cat([tk, tk]), torch.cat([tv, tv])
+
+
+def _hash_queries(gen, keys, n, dev):
+    import torch
+    hits = keys[torch.randint(0, keys.numel(), (n - n // 2,), generator=gen,
+                              device=dev)]
+    misses = torch.randint(-(1 << 30), 1 << 30, (n // 2,), generator=gen,
+                           device=dev, dtype=torch.int64) * 2
+    misses[misses == 0] = 2
+    return torch.cat([hits, misses.to(torch.int32)])
+
+
+def _probe_counts(keys, tk, n_slots, max_probes):
+    """Slots each key reads: up to its first hit or EMPTY slot, at most
+    ``max_probes``, never past the table's end (the kernel's walk)."""
+    import torch
+    from repro_torch.kernels.hash_probe import _mix
+    h = _mix(keys) % n_slots
+    count = torch.zeros_like(h)
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    for p in range(max_probes):
+        idx = h + p
+        inside = idx < tk.numel()
+        ck = tk[idx.clamp(max=tk.numel() - 1)]
+        count += (inside & ~done).long()
+        done |= ~inside | (ck == keys) | (ck == 0)
+    return h, count
+
+
+def _hash_bound(keys, tk, n_slots, found) -> tuple[float, dict]:
+    """Bytes this data needs: 4 per key in, 8 per key out, and the table's
+    32-byte sectors (8 slots) that the probes touch: their union when both
+    tables fit L2, else each key's own (a sector per chain sector of
+    table_k, one of table_v per hit).  Returns (bound ms, the counts)."""
+    import torch
+    h, count = _probe_counts(keys, tk, n_slots, HASH_MAX_PROBES)
+    n = keys.numel()
+    hits = int(found.sum())
+    if 2 * 4 * tk.numel() <= L2_BYTES:
+        seen = torch.zeros(tk.numel() // 8 + 1, dtype=torch.bool,
+                           device=keys.device)
+        for p in range(HASH_MAX_PROBES):
+            live = count > p
+            seen[(h[live] + p) // 8] = True
+        hit_idx = h[found.bool()] + count[found.bool()] - 1
+        v_sectors = int(torch.unique(hit_idx // 8).numel())
+        k_sectors = int(seen.sum())
+    else:
+        last = h + count.clamp(min=1) - 1
+        k_sectors = int(((last // 8) - (h // 8) + 1)[count > 0].sum())
+        v_sectors = hits
+    nbytes = 12 * n + 32 * (k_sectors + v_sectors)
+    return bytes_ms(nbytes), {"probes_per_key": float(count.float().mean()),
+                              "table_k_sectors": k_sectors,
+                              "table_v_sectors": v_sectors, "bytes": nbytes}
+
+
+def _hash_case(hp, q, tk, tv, n_slots, what, max_probes=HASH_MAX_PROBES):
+    import torch
+    got = hp.hash_probe(q, tk, tv, n_slots, max_probes)
+    want = hp.hash_probe_plain(q, tk, tv, n_slots, max_probes)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"hash_probe differs from plain at {what}")
+    return want
+
+
+def phase_hash_kernel(dev):
+    import numpy as np
+    import torch
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ops
+    # -- the path: the entry point over the hash_table app's own tables
+    apps = {"bench": ALL_APPS["hash_table"](**BENCH_SIZES["hash_table"]),
+            "16x": ALL_APPS["hash_table"](**HASH_TABLE_16X)}
+    longest = {}
+    for label, app in apps.items():                # chains within the limit
+        n_slots = app.statics["n_slots"]
+        tk = torch.from_numpy(app.dram_init["table_k"].astype(np.int32)).to(
+            dev)
+        home = hp._mix(tk[:n_slots]) % n_slots
+        stored = tk[:n_slots] != 0
+        at = torch.arange(n_slots, device=dev)
+        longest[label] = int(((at - home) % n_slots)[stored].max()) + 1
+        require(longest[label] <= HASH_MAX_PROBES, f"hash_table {label}: a "
+                f"chain of {longest[label]} > {HASH_MAX_PROBES} probes")
+    _reset_all_launches()
+    results = {label: ops.hash_lookup(
+        app.dram_init["queries"], app.dram_init["table_k"],
+        app.dram_init["table_v"], app.statics["n_slots"]) for label, app in
+        apps.items()}
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    require(launches["hash_probe"] == len(apps),
+            f"hash_lookup launched {launches['hash_probe']} kernels")
+    for label, (vals, found) in results.items():
+        want = apps[label].expected["results"]
+        got = torch.where(found == 1, vals, 0).cpu().numpy()
+        require((got == want).all(), f"hash_table {label}: the probe's "
+                "values differ from the app's expected results")
+    emit({"phase": "hash_kernel", "path": "ops.hash_lookup on the hash_table "
+          "app's tables", "apps": {k: {"n_slots": a.statics["n_slots"],
+                                       "queries": len(a.dram_init["queries"]),
+                                       "found": int(results[k][1].sum()),
+                                       "longest_chain": longest[k]}
+                                   for k, a in apps.items()},
+          "expected_equal": True, "launches": launches})
+    # -- the sweep (comparison launches, not the path)
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    cases, found_share = 0, []
+    for n_slots in HASH_SLOTS:
+        for load in HASH_LOADS:
+            keys, tk, tv = _hash_table(gen, n_slots, load, dev)
+            for n in HASH_NS:
+                q = _hash_queries(gen, keys, n, dev)
+                _, f = _hash_case(hp, q, tk, tv, n_slots,
+                                  f"n_slots={n_slots} load={load} n={n}")
+                found_share.append(float(f[: n - n // 2].float().mean()))
+                cases += 1
+            del tk, tv
+    # an overfull case: a full table and more probes than it holds past h
+    keys, tk, tv = _hash_table(gen, 64, 1.0, dev)
+    q = _hash_queries(gen, keys, 1000, dev)
+    for max_probes in (1, 64, 200):
+        _hash_case(hp, q, tk, tv, 64, f"full table, {max_probes} probes",
+                   max_probes)
+        cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "hash_kernel", "check": "exact vs plain", "cases": cases,
+          "hits_found_share": [min(found_share), max(found_share)]})
+    # -- times: the app at 16x (the path) and 2^24 keys in 2^24 slots
+    rows = {}
+    app = apps["16x"]
+    path_in = [torch.from_numpy(app.dram_init[k].astype(np.int32)).to(dev)
+               for k in ("queries", "table_k", "table_v")]
+    large_keys, ltk, ltv = _hash_table(gen, HASH_LARGE, 0.5, dev)
+    large_in = [_hash_queries(gen, large_keys, HASH_LARGE, dev), ltk, ltv]
+    for label, (q, tk, tv), n_slots, iters in (
+            ("path", path_in, app.statics["n_slots"], 300),
+            ("large", large_in, HASH_LARGE, 20)):
+        v, f = _hash_case(hp, q, tk, tv, n_slots, f"{label} timing shape")
+        bound, counts = _hash_bound(q, tk, n_slots, f)
+        load = float((tk[:n_slots] != 0).float().mean())
+        rec = {"n": q.numel(), "n_slots": n_slots, "load": load,
+               "hits": int(f.sum()), **counts,
+               "knuth_probes": {"hit": (1 + 1 / (1 - load)) / 2,
+                                "miss": (1 + 1 / (1 - load) ** 2) / 2},
+               "max_abs_err": 0,
+               "kernel_ms": time_ms(lambda: hp.hash_probe(q, tk, tv, n_slots),
+                                    iters),
+               "kernel_graph_ms": graph_ms(
+                   lambda: hp.hash_probe(q, tk, tv, n_slots), iters),
+               "plain_ms": time_ms(
+                   lambda: hp.hash_probe_plain(q, tk, tv, n_slots),
+                   max(3, iters // 10)),
+               "library_ms": None,
+               "library_note": "none: no PyTorch call computes an "
+                               "open-addressing probe",
+               "bound_ms": bound, "bound_by": "bytes"}
+        rows[label] = rec
+        emit({"phase": "hash_kernel", "kernel": "hash_probe", "shape": label,
+              **rec})
+    del large_in, ltk, ltv, large_keys
+    return {"hash_probe": {**rows, "max_abs_err": 0}}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the moe_dispatch kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _dispatch_inputs(gen, t, k, d, e, dtype, dev, drop=None, cap=None):
+    """``t`` tokens each routed to ``k`` distinct experts (a random top-k),
+    flattened to A = t * k assignment rows with their cumsum positions, as
+    ``ops.moe_dispatch_combine`` makes them; the capacity is ``cap`` or the
+    one that drops about ``drop`` of the rows.  Rows drawn on the card."""
+    import torch
+    from repro_torch.kernels import ops
+    eidx = torch.rand((t, e), generator=gen, device=dev).argsort(1)[:, :k]
+    flat_e = eidx.reshape(-1)
+    pos = ops._positions_in_expert(flat_e, e)
+    if cap is None:
+        cap = max(1, int(torch.quantile(pos.float(), 1 - drop).item())
+                  if drop else int(pos.max()) + 1)
+    tokens = torch.randn((t * k, d), generator=gen, device=dev).to(dtype)
+    return (tokens, flat_e.to(torch.int32), pos.to(torch.int32), e, cap)
+
+
+def _bits(x):
+    import torch
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _dispatch_case(md, ins, what) -> float:
+    import torch
+    got = md.moe_dispatch(*ins)
+    want = md.moe_dispatch_plain(*ins)
+    require(got.shape == want.shape and torch.equal(_bits(got), _bits(want)),
+            f"moe_dispatch differs from plain at {what}")
+    return float((ins[2] >= ins[4]).float().mean())
+
+
+def phase_moe_kernel(dev):
+    import torch
+    from repro_torch.kernels import moe_dispatch as md
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    cases, drops = 0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for a in (1, 7, 256, 4096):
+            for d in (32, 100, 2048):
+                for e in (8, 64):
+                    for drop in (0.0, 0.2, 0.9):
+                        ins = _dispatch_inputs(gen, a, 1, d, e, dtype, dev,
+                                               drop=drop)
+                        drops.append(_dispatch_case(
+                            md, ins, f"A={a} D={d} E={e} drop~{drop} "
+                            f"{dtype}"))
+                        cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "moe_kernel", "check": "bit for bit vs plain",
+          "cases": cases, "drop_share": [min(drops), max(drops)]})
+    rows = {}
+    for label, (t, k, d, e, c), iters in (("path", MOE_PATH, 200),
+                                          ("large", MOE_LARGE, 10)):
+        ins = _dispatch_inputs(gen, t, k, d, e, torch.bfloat16, dev, cap=c)
+        drop = _dispatch_case(md, ins, f"{label} timing shape")
+        tokens, flat_e, pos = ins[:3]
+        keep = pos < c
+        row_bytes = d * tokens.element_size()
+        kept = int(keep.sum())
+        nbytes = kept * row_bytes + e * c * row_bytes + 8 * tokens.shape[0]
+        # yardstick: one index_put_ of the kept rows into a zeroed buffer
+        # (the kept rows and their indices picked beforehand)
+        buf = torch.empty((e, c, d), dtype=tokens.dtype, device=dev)
+        ek, pk, rk = flat_e[keep].long(), pos[keep].long(), tokens[keep]
+
+        def library():
+            buf.zero_()
+            buf.index_put_((ek, pk), rk)
+
+        rec = {"a": tokens.shape[0], "d": d, "e": e, "c": c,
+               "dtype": "bfloat16", "drop_share": drop, "kept_rows": kept,
+               "max_abs_err": 0,
+               "kernel_ms": time_ms(lambda: md.moe_dispatch(*ins), iters),
+               "kernel_graph_ms": graph_ms(lambda: md.moe_dispatch(*ins),
+                                           iters),
+               "plain_ms": time_ms(lambda: md.moe_dispatch_plain(*ins),
+                                   iters),
+               "library_ms": time_ms(library, iters),
+               "library": "zeros + index_put_ of the kept rows",
+               "bound_ms": bytes_ms(nbytes), "bound_by": "bytes"}
+        rows[label] = rec
+        emit({"phase": "moe_kernel", "kernel": "moe_dispatch", "shape": label,
+              **rec})
+    return {"moe_dispatch": {**rows, "max_abs_err": 0}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: full-width olmoe-1b-7b served through DecodeEngine
+# ---------------------------------------------------------------------------
+
+def _moe_ff_both(lp, x, cfg):
+    """The layer's MoE FF on ``x`` by the served route (``moe_ff``, scatter)
+    and by the kernel route (``ops.moe_dispatch_combine(impl="kernel")`` on
+    the layer's own router and experts); they must agree bit for bit.
+    Returns (x + FF, the share of assignments past capacity)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    xn = L.apply_norm(lp["ln2"], x, cfg)
+    served, _ = moe.moe_ff(lp["moe"], xn, cfg)
+    toks = xn.reshape(-1, cfg.d_model)
+    _, gates, eidx = moe.route(lp["moe"], toks, cfg)
+    cap = moe.capacity(cfg, toks.shape[0])
+    got = ops.moe_dispatch_combine(toks, gates, eidx, cfg.n_experts, cap,
+                                   moe.expert_fn(lp["moe"], xn.dtype),
+                                   impl="kernel")
+    require(torch.equal(got, served.reshape(-1, cfg.d_model)),
+            "the MoE FF's kernel route differs from the served route")
+    pos = ops._positions_in_expert(eidx.reshape(-1), cfg.n_experts)
+    return x + served, float((pos >= cap).float().mean())
+
+
+def _moe_walk(params, cfg, req, dev) -> dict:
+    """One request teacher-forced, layer by layer, on the served route's
+    stream: its prompt (attention through flash, held to the plain route
+    within MOE_ATTN_BF16_STEPS; the MoE FF through both routes), then one
+    decode step per generated token but the last.  Returns the worst
+    attention diff over its tolerance and each layer's prefill drop share."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _positions, layer_params
+    p_len = len(req.prompt)
+    toks = torch.as_tensor(req.prompt, device=dev)[None]
+    positions = _positions(1, p_len, dev)
+    x = L.embed(params["embed"], toks)
+    worst, drops, cache = 0.0, [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        xn = L.apply_norm(lp["ln1"], x, cfg)
+        h, (k, v) = L.attention(lp["attn"], xn, cfg, positions=positions,
+                                impl="kernel")
+        hp, _ = L.attention(lp["attn"], xn, cfg, positions=positions,
+                            impl="naive")
+        tol = _bf16_steps(MOE_ATTN_BF16_STEPS, float(hp.abs().max()))
+        diff = float((h.float() - hp.float()).abs().max())
+        require(diff <= tol, f"rid {req.rid} layer {i}: flash attention "
+                f"differs from the plain route by {diff} (tol {tol})")
+        worst = max(worst, diff / tol)
+        x, drop = _moe_ff_both(lp, x + h, cfg)
+        drops.append(drop)
+        pad = LM_MAX_LEN - p_len
+        cache.append([F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))])
+    pos = torch.tensor([p_len], dtype=torch.int32, device=dev)
+    for t in req.tokens[:-1]:
+        x = L.embed(params["embed"], torch.tensor([[t]], dtype=torch.int32,
+                                                  device=dev))
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i)
+            h, cache[i][0], cache[i][1] = L.decode_attention_step(
+                lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                cache[i][0], cache[i][1], pos)
+            x, _ = _moe_ff_both(lp, x + h, cfg)
+        pos = pos + 1
+    return {"attn_worst_over_tol": worst, "drops": np.array(drops)}
+
+
+def _moe_kernel_prefill(params, cfg, prompt):
+    """A prefill's trunk on the kernel routes (flash; the MoE FF through the
+    dispatch kernel), logits of the last position."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _positions, layer_params
+    positions = _positions(1, prompt.shape[1], prompt.device)
+    x = L.embed(params["embed"], prompt)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                           positions=positions, impl="kernel")
+        x = x + h
+        toks = L.apply_norm(lp["ln2"], x, cfg).reshape(-1, cfg.d_model)
+        _, gates, eidx = moe.route(lp["moe"], toks, cfg)
+        x = x + ops.moe_dispatch_combine(
+            toks, gates, eidx, cfg.n_experts,
+            moe.capacity(cfg, toks.shape[0]),
+            moe.expert_fn(lp["moe"], toks.dtype)).reshape(x.shape)
+    x = L.apply_norm(params["ln_f"], x[:, -1:], cfg)
+    return L.logits(params["embed"], x, cfg)
+
+
+def moe_profile(params, cfg, prompt) -> dict:
+    """torch.profiler over one prefill on the kernel routes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        int(_moe_kernel_prefill(params, cfg, prompt)[0, -1].argmax())
+
+    run()                                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"phase": "moe_lm", "profile": "prefill on the kernel routes at "
+            f"S = {prompt.shape[1]}", **device_time(prof, wall, "moe profile",
+                                                     kernel="moe_dispatch")}
+
+
+def phase_moe_lm(dev):
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe
+    from repro_torch.models.params import leaves
+    from repro_torch.models.zoo import get_model
+    gc.collect()                                   # the earlier weights
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    zoo = timed_zoo(get_model(cfg))
+    t0 = time.perf_counter()
+    params = card_params(zoo.spec(), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = zoo.n_params()
+    require(n_params == MOE_N_PARAMS, f"{MOE_ARCH}: {n_params} parameters")
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+
+    # -- the main path: counts at 0 just before, read just after.  Serving,
+    # then every request walked layer by layer through the kernel routes,
+    # then the decode kernel over every layer's served cache.
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    reqs, eng, wall = _serve(zoo, params)
+    served_launches = _lm_launches()
+    serve_peak = torch.cuda.max_memory_allocated()
+    require(eng.impl == "kernel", f"DecodeEngine's default is {eng.impl}")
+    served_want = {"flash_attention": cfg.n_layers * LM_REQUESTS,
+                   "moe_dispatch": 0}
+    for k, v in served_want.items():
+        require(served_launches[k] == v, f"served {k} launches "
+                f"{served_launches[k]}, want {v}")
+    walks = [_moe_walk(params, cfg, r, dev) for r in reqs]
+    lengths = torch.clamp(eng.position, 1, LM_MAX_LEN)
+    rng = np.random.default_rng(SEED + 10)
+    qs = [torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, cfg.n_heads, 1, cfg.hd)).astype("float32")).to(
+        dev, torch.bfloat16) for _ in range(cfg.n_layers)]
+    dec_out = [ops.decode_mha(qs[i], eng.cache["k"][i], eng.cache["v"][i],
+                              lengths, impl="kernel")
+               for i in range(cfg.n_layers)]
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    decode_walked = sum(len(r.tokens) - 1 for r in reqs)
+    want = {"moe_dispatch": cfg.n_layers * (LM_REQUESTS + decode_walked),
+            "flash_attention": 2 * cfg.n_layers * LM_REQUESTS,
+            "decode_attention": cfg.n_layers}
+    for k, v in want.items():
+        require(launches[k] == v, f"{k} launched {launches[k]} times on "
+                f"the path, want {v}")
+    drops = np.stack([w["drops"] for w in walks])          # [request, layer]
+    tokens = sum(len(r.tokens) for r in reqs)
+    emit({"phase": "moe_lm", "arch": MOE_ARCH, "n_params": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "requests": LM_REQUESTS,
+          "prompt_lens": [len(r.prompt) for r in reqs], "tokens": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall, **eng.stats(),
+          "prefill_ms": zoo.prefill_ms, "decode_ms_per_step": zoo.decode_ms,
+          "max_memory_allocated": serve_peak,
+          "capacity": {"prefill_512": moe.capacity(cfg, 512),
+                       "decode": moe.capacity(cfg, LM_SLOTS)},
+          "drop_share_per_layer": {
+              "prompt_512": drops[0].tolist(),
+              "mean_over_prompts": drops.mean(0).tolist(),
+              "max_over_prompts": drops.max(0).tolist()},
+          "decode_steps_walked": decode_walked,
+          "served_launches": served_launches, "launches": launches,
+          "reckoned": want})
+
+    # -- checks (launches from here on are comparisons, not the path)
+    emit({"phase": "moe_lm", "check": "kernel routes vs served, per layer on "
+          "the same input", "layers": cfg.n_layers * LM_REQUESTS,
+          "moe_ff_layer_calls": want["moe_dispatch"],
+          "moe_ff_bit_for_bit": True, "attn_bf16_steps": MOE_ATTN_BF16_STEPS,
+          "attn_worst_diff_over_tol": max(w["attn_worst_over_tol"]
+                                          for w in walks)})
+    errs = []
+    for i in range(cfg.n_layers):
+        ref_out = ops.decode_mha(qs[i], eng.cache["k"][i], eng.cache["v"][i],
+                                 lengths, impl="ref")
+        errs.append(float((dec_out[i].float() - ref_out.float()).abs()
+                          .max()))
+        require(errs[-1] <= ATTN_TOL["bfloat16"] * 2,
+                f"decode_mha kernel vs ref on layer {i}'s cache: {errs[-1]}")
+    emit({"phase": "moe_lm", "check": "decode_mha kernel vs ref over each "
+          "served cache (head dim 128)", "lengths": lengths.tolist(),
+          "max_abs_err": max(errs)})
+    # End to end, measured: each request's prompt and tokens re-served at
+    # batch 1 (the engine decoded at batch 4, whose products may round
+    # otherwise): finite logits, and how many greedy tokens agree
+    # (for each token that differs, the re-served logit margin of its
+    # argmax over the engine's token)
+    agree, margins = 0, []
+    for r in reqs:
+        ls = _served_logits(zoo, params, r)
+        require(bool(torch.isfinite(ls).all()) and ls.shape == (
+            len(r.tokens), cfg.vocab), f"rid {r.rid}: served logits")
+        for step, t in enumerate(r.tokens):
+            if t == int(ls[step].argmax()):
+                agree += 1
+            else:
+                margins.append(float(ls[step].max() - ls[step, t]))
+    emit({"phase": "moe_lm", "end_to_end": "engine tokens vs each request "
+          "re-served at batch 1", "greedy_tokens_equal": agree,
+          "tokens": tokens, "flip_margins": margins,
+          "max_abs_logit": float(ls.abs().max())})
+
+    emit(moe_profile(params, cfg, torch.as_tensor(
+        reqs[0].prompt, device=dev)[None]))
+
+    # -- the CLI entry point for this architecture, in process, on the card
+    del params, eng, dec_out, qs
+    gc.collect()
+    t0 = time.perf_counter()
+    res = launch_serve.main(["--arch", MOE_ARCH])
+    emit({"phase": "moe_lm", "entry": "repro_torch.launch.serve.main",
+          "arch": MOE_ARCH, "preset": "reduced",
+          "seconds": time.perf_counter() - t0, **res})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = {
     "stream_compact": {
@@ -1642,6 +2238,12 @@ KERNEL_ROWS = {
     "segment_reduce": {
         "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
         "replaces": "src/repro/kernels/segment_reduce.py:32"},
+    "hash_probe": {
+        "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
+        "replaces": "src/repro/kernels/hash_probe.py:34"},
+    "moe_dispatch": {
+        "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+        "replaces": "src/repro/kernels/moe_dispatch.py:28"},
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25"},
@@ -1696,7 +2298,10 @@ def main() -> int:
     tb = counting_backend()
     launches = timed("apps", phase_apps, tb)
     timed("serve", phase_serve, tb)
-    timings.update(timed("attention", phase_attention, dev))
+    attn = timed("attention", phase_attention, dev)
+    for name, rec in attn.pop("d128").items():
+        attn[name]["d128"] = rec
+    timings.update(attn)
     lm = timed("lm", phase_lm)
     timings.update(timed("ssm_kernel", phase_ssm_kernel, dev))
     ssm_lm = timed("ssm_lm", phase_ssm_lm, dev)
@@ -1705,15 +2310,22 @@ def main() -> int:
     for name, rec in rg["d256"].items():
         timings[name]["d256"] = rec
     hybrid = timed("hybrid_lm", phase_hybrid_lm, dev)
+    hash_rows, hash_path = timed("hash_kernel", phase_hash_kernel, dev)
+    timings.update(hash_rows)
+    timings.update(timed("moe_kernel", phase_moe_kernel, dev))
+    moe_lm = timed("moe_lm", phase_moe_lm, dev)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",
                                         "decode_attention")})
     launches["ssm_scan"] = ssm_lm["ssm_scan"]
     launches["rg_lru"] = hybrid["rg_lru"]
-    # each LM path's own run, counted from 0 (the line's ``launches`` is the
+    launches["hash_probe"] = hash_path["hash_probe"]
+    launches["moe_dispatch"] = moe_lm["moe_dispatch"]
+    # each path's own run, counted from 0 (the line's ``launches`` is the
     # first path that runs the kernel)
-    by_path = {"lm": lm, "ssm_lm": ssm_lm, "hybrid_lm": hybrid}
+    by_path = {"lm": lm, "ssm_lm": ssm_lm, "hybrid_lm": hybrid,
+               "hash_kernel": hash_path, "moe_lm": moe_lm}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1737,9 +2349,12 @@ def main() -> int:
             **({"library_note": path["library_note"]}
                if path["library_ms"] is None else {}),
             "shape": {k: path[k] for k in ("b", "n", "d", "di", "emitted",
-                                           "bh", "sq", "skv", "s", "dtype",
+                                           "bh", "sq", "skv", "s", "a", "e",
+                                           "c", "n_slots", "load", "dtype",
                                            "causal") if k in path},
             "large": timings[name]["large"],
+            **({"head_dim_128": timings[name]["d128"]}
+               if "d128" in timings[name] else {}),
             **({"head_dim_256": timings[name]["d256"]}
                if "d256" in timings[name] else {}),
             **({"launches_by_path": {p: c[name] for p, c in by_path.items()

@@ -1,6 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``kernels/csrc``.
 
-Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+Each ``csrc/<name>.cu`` (``stream_compact``, ``segment_reduce``,
+``hash_probe``, ``flash_attention``, ``decode_attention``, ``ssm_scan``,
+``rg_lru``, ``moe_dispatch``) is one shared library with a plain C interface,
 compiled for Hopper (``sm_90a``) by ``nvcc`` at first CUDA use into
 ``build/repro_torch_kernels/`` at the repository root, and loaded with
 ``ctypes``.  Pointers and the stream pass as ``c_void_p``; every entry point

@@ -30,15 +30,29 @@ Recurrences (the reference's ``kernels/ops.py:862-979``): ``ssm`` and
 and ``rg_lru`` kernels (their plain torch loops on a CPU tensor);
 ``ssm_assoc``, ``ssm_chunked``, ``rg_lru_assoc`` and ``rg_lru_chunked`` are
 the reference's associative-scan formulations in plain torch, taking any S.
+
+Hash probe (the reference's ``kernels/ops.py:530-581``): ``hash_lookup``
+calls the hand-written ``hash_probe`` kernel on a CUDA tensor, whatever the
+table's size, and its plain probe loop (the reference's
+``_hash_lookup_xla``) on a CPU tensor.
+
+MoE (the reference's ``kernels/ops.py:984-1038``): ``moe_dispatch_combine``
+with ``impl="kernel"`` (the reference's ``"pallas"``) dispatches through the
+hand-written ``moe_dispatch`` kernel, with ``"scatter"`` through a plain
+scatter-add; ``moe_dense_einsum`` is the one-hot MapReduce baseline.  All
+three share one deterministic combine.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..models.params import resolve_device
 from . import ref as _ref
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .hash_probe import hash_probe
+from .moe_dispatch import moe_dispatch
 from .rg_lru import rg_lru
 from .segment_reduce import segment_reduce
 from .ssm_scan import ssm_scan
@@ -216,6 +230,33 @@ def vm_first_mismatch(ref, others, device="cpu") -> int:
     mism = (stack[1:] != stack[:1]).any(0)
     first = torch.where(mism.any(), torch.argmax(mism.to(torch.int32)), n)
     return int(first)
+
+
+# ---- hash probe ----
+
+def hash_lookup(keys, table_k, table_v, n_slots: int, max_probes: int = 16,
+                device=None):
+    """Open-addressing lookup of ``keys`` in a table padded to ``2 *
+    n_slots``.  Returns (values [N], found [N]) as int32 tensors.
+
+    Tensors stay on their device; numpy inputs move to ``device`` (``None``:
+    the card), wrapped to int32 as the reference's ``jnp.asarray`` wraps
+    int64 (keys at or above 2^31 become negative; the hash reads them as
+    uint32 again).  The reference sends tables above 2^20 entries (its
+    VMEM limit) to an XLA gather loop with the same semantics; here the
+    kernel takes every size on a CUDA tensor."""
+    dev = keys.device if isinstance(keys, torch.Tensor) \
+        else resolve_device(device, "hash_lookup")
+
+    def i32(a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) \
+            else torch.from_numpy(np.asarray(a, _I64))
+        if t.dtype != torch.int32:
+            t = _wrap32(t.long())
+        return t.to(dev).contiguous()
+
+    return hash_probe(i32(keys), i32(table_k), i32(table_v), n_slots,
+                      max_probes)
 
 
 # ---- attention ----
@@ -497,3 +538,87 @@ def rg_lru_chunked(a, b, h0, chunk: int = 256):
         h = hh[:, -1]
         ys.append(hh.to(a.dtype))
     return torch.cat(ys, 1), h
+
+
+# ---- MoE dispatch / combine ----
+
+MOE_IMPLS = ("kernel", "scatter")
+
+
+def _positions_in_expert(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each assignment's running index within its expert (``flat_e`` [A]
+    int64): the allocator's pointer stream, one cumsum over the one-hot
+    choice (as the reference)."""
+    onehot = torch.nn.functional.one_hot(flat_e, n_experts)
+    pos = torch.cumsum(onehot, 0) - onehot
+    return pos.gather(1, flat_e[:, None])[:, 0]
+
+
+def _combine(res: torch.Tensor, t: int, k: int, dtype) -> torch.Tensor:
+    """Sum each token's ``k`` weighted expert rows ``res`` [T*K, D] (float32)
+    in the tokens' dtype, in k order, rounding after every add: the
+    reference's ``zeros.at[tok_of_a].add(res.astype(dtype))`` applies its
+    updates one at a time in that order.  Deterministic on every device,
+    where ``index_add_`` on the card adds by atomics in no fixed order."""
+    res = res.to(dtype).view(t, k, -1)
+    out = torch.zeros_like(res[:, 0])
+    for j in range(k):
+        out = out + res[:, j]
+    return out
+
+
+def moe_dispatch_combine(tokens, gates, expert_idx, n_experts: int,
+                         capacity: int, expert_fn, impl: str = "kernel"):
+    """Revet-style MoE: compaction dispatch -> ``expert_fn`` [E, C, D] ->
+    weighted combine.  tokens [T, D]; gates / expert_idx [T, K] (the top-k
+    router's output).  Assignments past an expert's capacity drop.
+
+    ``"kernel"`` dispatches with :func:`moe_dispatch` (the kernel on a CUDA
+    tensor, its plain version on a CPU one); ``"scatter"`` scatter-adds the
+    rows, a dropped one adding zero at slot C-1, as the reference.  The
+    reference pins the dispatch buffer to the expert-parallel layout with
+    two ``act_hint`` calls, no-ops on one device; the port has none."""
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"unknown MoE impl {impl!r} (have {MOE_IMPLS}; the "
+                         "reference's 'pallas' route is 'kernel' here)")
+    t, dmodel = tokens.shape
+    k = expert_idx.shape[1]
+    flat_e = expert_idx.reshape(-1).long()
+    flat_pos = _positions_in_expert(flat_e, n_experts)
+    kept = flat_pos < capacity
+    slot = flat_pos.clamp(0, capacity - 1)
+    gathered = tokens.repeat_interleave(k, 0)                 # [A, D]
+    if impl == "kernel":
+        dispatched = moe_dispatch(gathered, flat_e.to(torch.int32),
+                                  flat_pos.to(torch.int32), n_experts,
+                                  capacity)
+    else:
+        dispatched = tokens.new_zeros((n_experts, capacity, dmodel))
+        dispatched.index_put_((flat_e, slot),
+                              torch.where(kept[:, None], gathered, 0),
+                              accumulate=True)
+    out_e = expert_fn(dispatched)                             # [E, C, D]
+    res = torch.where(kept[:, None], out_e[flat_e, slot], 0) \
+        * gates.reshape(-1)[:, None]
+    return _combine(res, t, k, tokens.dtype)
+
+
+def moe_dense_einsum(tokens, gates, expert_idx, n_experts: int,
+                     capacity: int, expert_fn):
+    """The MapReduce-style dense one-hot dispatch baseline (what Spatial
+    could express): full [A, E, C] dispatch tensors, no compaction."""
+    t, dmodel = tokens.shape
+    k = expert_idx.shape[1]
+    flat_e = expert_idx.reshape(-1).long()
+    flat_pos = _positions_in_expert(flat_e, n_experts)
+    one_hot = torch.nn.functional.one_hot
+    disp = (one_hot(flat_e, n_experts).to(tokens.dtype)[:, :, None]
+            * one_hot(flat_pos.clamp(0, capacity - 1), capacity)
+            .to(tokens.dtype)[:, None, :])
+    disp = disp * (flat_pos < capacity)[:, None, None].to(tokens.dtype)
+    gathered = tokens.repeat_interleave(k, 0)
+    dispatched = torch.einsum("aec,ad->ecd", disp, gathered)
+    out_e = expert_fn(dispatched)
+    res = torch.einsum("aec,ecd->ad", disp, out_e) \
+        * gates.reshape(-1)[:, None]
+    return _combine(res, t, k, tokens.dtype)

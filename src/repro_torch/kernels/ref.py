@@ -1,11 +1,13 @@
 """Plain torch oracles for the port's kernels.
 
 Each function is the semantic ground truth the kernels and the plain paths
-are held to, on any device: attention, the Mamba-1 selective scan and the
-RG-LRU diagonal scan so far; the others come with their kernels.
+are held to: attention, the Mamba-1 selective scan and the RG-LRU diagonal
+scan in torch, on any device; the hash probe and the MoE dispatch in numpy,
+one key or one row at a time, as the reference's oracles.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -62,3 +64,50 @@ def rg_lru_ref(a, b, h0):
         h = a[:, t] * h + b[:, t]
         y[:, t] = h
     return y, h
+
+
+# -- hash_probe ---------------------------------------------------------------
+
+def _mix_ref(x: int) -> int:
+    x &= 0xFFFFFFFF
+    x ^= x >> 16
+    x = x * 0x45D9F3B & 0xFFFFFFFF
+    x ^= x >> 16
+    return x
+
+
+def hash_probe_ref(keys, table_k, table_v, n_slots: int,
+                   max_probes: int = 16):
+    """Linear probing from ``_mix(key) % n_slots`` over the padded table, one
+    key at a time: a slot holding the key answers, an EMPTY (0) slot or the
+    end of the table stops.  Returns (values, found) as int64 arrays."""
+    vals, found = [], []
+    for key in np.asarray(keys):
+        h = _mix_ref(int(key)) % n_slots
+        v, f = 0, 0
+        for p in range(max_probes):
+            if h + p >= len(table_k):
+                break
+            ck = int(table_k[h + p])
+            if ck == int(key):
+                v, f = int(table_v[h + p]), 1
+                break
+            if ck == 0:
+                break
+        vals.append(v)
+        found.append(f)
+    return np.array(vals, np.int64), np.array(found, np.int64)
+
+
+# -- moe_dispatch -------------------------------------------------------------
+
+def moe_dispatch_ref(tokens, expert_idx, positions, n_experts: int,
+                     capacity: int):
+    """Row ``a`` of ``tokens`` goes to slot ``[expert_idx[a], positions[a]]``
+    of a zeroed [E, C, D] buffer when both lie in range; other rows drop."""
+    tokens = np.asarray(tokens)
+    out = np.zeros((n_experts, capacity, tokens.shape[1]), tokens.dtype)
+    for a, (e, p) in enumerate(zip(expert_idx, positions)):
+        if 0 <= e < n_experts and 0 <= p < capacity:
+            out[int(e), int(p)] = tokens[a]
+    return out

@@ -8,16 +8,21 @@ request load (mixed prompt/output lengths), on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+
 Reports throughput and lane occupancy — the serving analogue of the paper's
 lane-density claim (the engine IS the forward-backward merge; see
 serve/engine.py).  ``--arch`` takes any architecture of a ported family
-(dense, ssm, hybrid).  The engine runs its default ``impl="kernel"``: a
-dense model's prefill attention goes through the hand-written flash
-attention kernel; an SSM's prefill runs the reference's plain chunked scan
-whatever the impl, so its state carries over constant-size into the decode
-steps; a hybrid's prefill runs flash in its local-attention blocks (the
-banded plain path past the window) and the plain chunked RG-LRU scan in
-its recurrent blocks, as the reference.
+(dense, moe, ssm, hybrid).  The engine runs its default ``impl="kernel"``:
+a dense or MoE model's prefill attention goes through the hand-written
+flash attention kernel, and an MoE layer's tokens reach its experts through
+the reference's scatter dispatch (``moe_ff``'s served route; the dispatch
+kernel is ``ops.moe_dispatch_combine(impl="kernel")``); an SSM's prefill
+runs the reference's plain chunked scan whatever the impl, so its state
+carries over constant-size into the decode steps; a hybrid's prefill runs
+flash in its local-attention blocks (the banded plain path past the window)
+and the plain chunked RG-LRU scan in its recurrent blocks, as the
+reference.
 """
 from __future__ import annotations
 

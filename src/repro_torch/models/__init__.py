@@ -1,2 +1,2 @@
-"""The LM stack of the port: parameter specs, layers, the dense transformer
-and the model zoo (dense family so far)."""
+"""The LM stack of the port: parameter specs, layers, the dense, MoE, SSM
+and hybrid families, and the model zoo."""

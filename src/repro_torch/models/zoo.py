@@ -5,8 +5,8 @@
     zoo.init_params(seed, device)   # the reference's weights, as tensors
     zoo.prefill / zoo.decode_step / zoo.init_cache
 
-The dense, SSM and hybrid families are ported so far; the others raise, naming
-the ROADMAP item that brings them.  Training (``loss_fn``, batch specs) comes
+The dense, MoE, SSM and hybrid families are ported so far; the others raise,
+naming the ROADMAP item that brings them.  Training (``loss_fn``, batch specs) comes
 with the training slice.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..configs.base import ModelConfig
-from . import rglru, ssm, transformer
+from . import moe, rglru, ssm, transformer
 from .params import init, n_params
 
 
@@ -47,11 +47,10 @@ class Zoo:
                                 impl=impl)
 
 
-_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": rglru}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm, "hybrid": rglru}
 
 # where each family not yet ported stands in ROADMAP.md
 _PENDING = {
-    "moe": "Queue 1 item 6 (models/moe.py)",
     "encdec": "Queue 1 item 9 (models/encdec.py)",
     "vlm": "Queue 1 item 9 (models/vlm.py)",
 }

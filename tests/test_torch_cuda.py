@@ -6,7 +6,8 @@ machine with only the port's dependencies.  Without a card they skip: the
 kernels have no CPU mode.  The executor kernels' outputs are int32, so
 equality is exact; the attention and scan kernels are held to stated
 tolerances (the RG-LRU scan rounds as its plain loop does, so it is held
-to exact equality).
+to exact equality).  The MoE dispatch copies rows and the hash probe
+returns int32, so both are held to bit-for-bit equality.
 """
 import numpy as np
 import pytest
@@ -376,3 +377,177 @@ def test_cuda_hybrid_model_runs_the_kernels(cuda_device):
         n <= cfg.window for n in lens)
     assert all(r.done and len(r.tokens) == 6 for r in reqs)
     assert eng.cache["attn_k"].shape[3] == cfg.window
+
+
+# ---------------------------------------------------------------------------
+# olmoe-1b-7b's path: attention at head dim 128, the MoE dispatch kernel and
+# the hash probe kernel (both held bit for bit to their plain versions)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_at_olmoe_head_dim(cuda_device, dtype):
+    """olmoe-1b-7b's heads: 16 of 128, a 512-token prompt for flash and a
+    1024-row cache of 4 slots for decode."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(128)
+    q, k, v = _qkv(rng, 16, 512, 512, 128, dtype, cuda_device)
+    torch.testing.assert_close(fa.flash_attention(q, k, v).float(),
+                               fa.flash_attention_plain(q, k, v).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    q, k, v = _qkv(rng, 64, 1, 1024, 128, dtype, cuda_device)
+    lengths = torch.from_numpy(rng.integers(1, 1025, 64).astype(
+        np.int32)).to(cuda_device)
+    torch.testing.assert_close(
+        da.decode_attention(q, k, v, lengths).float(),
+        da.decode_attention_plain(q, k, v, lengths).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _dispatch_inputs(rng, a, d, e, cap_share, dtype, device):
+    """A top-k style assignment stream of ``a`` rows over ``e`` experts with
+    its cumsum positions, and a capacity that keeps about ``cap_share`` of
+    the rows of the busiest expert."""
+    flat_e = rng.integers(0, e, a)
+    onehot = np.eye(e, dtype=np.int64)[flat_e]
+    pos = (np.cumsum(onehot, 0) - onehot)[np.arange(a), flat_e]
+    cap = max(1, int(np.ceil(onehot.sum(0).max() * cap_share)))
+    tokens = torch.from_numpy(rng.standard_normal((a, d)).astype(
+        np.float32)).to(device, dtype)
+    as_i32 = (lambda x: torch.from_numpy(x.astype(np.int32)).to(device))
+    return tokens, as_i32(flat_e), as_i32(pos), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_dispatch_matches_plain(cuda_device, dtype):
+    from repro_torch.kernels import moe_dispatch as md
+    rng = np.random.default_rng(7)
+    for a in (1, 7, 256, 4096):
+        for d in (32, 100, 2048):
+            for e in (8, 64):
+                for share in (1.0, 0.8, 0.1):
+                    tok, ei, pos, cap = _dispatch_inputs(rng, a, d, e, share,
+                                                         dtype, cuda_device)
+                    before = md.moe_dispatch.launches
+                    got = md.moe_dispatch(tok, ei, pos, e, cap)
+                    assert md.moe_dispatch.launches == before + 1
+                    want = md.moe_dispatch_plain(tok, ei, pos, e, cap)
+                    assert got.dtype == dtype and got.shape == want.shape
+                    bits = torch.int16 if dtype == torch.bfloat16 \
+                        else torch.int32
+                    assert torch.equal(got.view(bits), want.view(bits)), \
+                        (a, d, e, cap)
+    # an odd row width on an odd base address takes the 2-byte copy
+    tok, ei, pos, cap = _dispatch_inputs(rng, 33, 7, 4, 0.5, dtype,
+                                         cuda_device)
+    tok = torch.cat([tok.flatten(), tok.flatten()[:1]])[1:].view(33, 7)
+    assert torch.equal(md.moe_dispatch(tok, ei, pos, 4, cap),
+                       md.moe_dispatch_plain(tok, ei, pos, 4, cap))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dispatch_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    rng = np.random.default_rng(8)
+    tok, ei, pos, cap = _dispatch_inputs(rng, 64, 32, 8, 1.0,
+                                         torch.bfloat16, cuda_device)
+    before = moe_dispatch.launches
+    with pytest.raises(TypeError, match="int32"):
+        moe_dispatch(tok, ei.long(), pos, 8, cap)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch(tok.t().contiguous().t(), ei, pos, 8, cap)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch(tok, torch.stack([ei, ei], 1)[:, 0], pos, 8, cap)
+    assert moe_dispatch.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_moe_routes_agree_bit_for_bit(cuda_device):
+    """Reduced olmoe-1b-7b's first layer on the card: the kernel route of
+    ``moe_dispatch_combine`` equals the served scatter route, and
+    ``DecodeEngine()`` serves the model, launching flash once per layer of
+    each prompt."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.zoo import get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = get_reduced("olmoe-1b-7b")
+    zoo = get_model(cfg)
+    params = zoo.init_params(0)
+    rng = np.random.default_rng(9)
+    p = layer_params(params, 0)["moe"]
+    for t in (1, 4, 100, 333):
+        x = torch.from_numpy(rng.standard_normal((t, cfg.d_model)).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+        _, gates, eidx = moe.route(p, x, cfg)
+        cap = moe.capacity(cfg, t)
+        before = moe_dispatch.launches
+        got = ops.moe_dispatch_combine(x, gates, eidx, cfg.n_experts, cap,
+                                       moe.expert_fn(p, x.dtype))
+        assert moe_dispatch.launches == before + 1
+        want, _ = moe.moe_ff(p, x[None], cfg)
+        assert torch.equal(got, want[0])
+    lens = (5, 20, 70, 12)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(
+        np.int32), max_new=6) for i, n in enumerate(lens)]
+    eng = DecodeEngine(zoo, params, batch_slots=3, max_len=96)
+    for r in reqs:
+        eng.submit(r)
+    before = flash_attention.launches
+    eng.run_until_drained()
+    assert flash_attention.launches - before == cfg.n_layers * len(lens)
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_probe_matches_plain(cuda_device):
+    from repro_torch.kernels import hash_probe as hp
+    rng = np.random.default_rng(10)
+    for n_slots in (1, 8, 128, 1000, 1024, 1 << 16):
+        for load in (0.25, 0.5, 1.0):
+            n_keys = max(1, int(n_slots * load))
+            keys = rng.choice(np.arange(-(1 << 20), 1 << 20), n_keys,
+                              replace=False)
+            keys[keys == 0] = 1 << 21
+            tk = np.zeros(n_slots, np.int64)
+            tv = np.zeros(n_slots, np.int64)
+            slots = rng.permutation(n_slots)[:n_keys]   # any layout will do
+            tk[slots], tv[slots] = keys, rng.integers(-99, 99, n_keys)
+            as_i32 = (lambda x: torch.from_numpy(
+                np.concatenate([x, x]).astype(np.int32)).to(cuda_device))
+            tk_t, tv_t = as_i32(tk), as_i32(tv)
+            for n in (1, 255, 256, 257, 5000):
+                q = np.concatenate([rng.choice(keys, n - n // 2),
+                                    rng.integers(-(1 << 31), 1 << 31,
+                                                 n // 2)])
+                q[:: 97] = 0                            # EMPTY as a key
+                qt = torch.from_numpy(q.astype(np.int32)).to(cuda_device)
+                for max_probes in (1, 16, min(3 * n_slots, 40)):
+                    before = hp.hash_probe.launches
+                    got = hp.hash_probe(qt, tk_t, tv_t, n_slots, max_probes)
+                    assert hp.hash_probe.launches == before + 1
+                    want = hp.hash_probe_plain(qt, tk_t, tv_t, n_slots,
+                                               max_probes)
+                    for g, w in zip(got, want):
+                        assert g.dtype == torch.int32 and torch.equal(g, w), \
+                            (n_slots, load, n, max_probes)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_probe_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.hash_probe import hash_probe
+    k = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    t = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    before = hash_probe.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_probe(torch.zeros(16, dtype=torch.int32,
+                               device=cuda_device)[::2], t, t, 8)
+    with pytest.raises(ValueError, match="different devices"):
+        hash_probe(k.cpu(), t, t, 8)
+    assert hash_probe.launches == before

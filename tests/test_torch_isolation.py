@@ -48,7 +48,8 @@ def test_port_imports_without_jax_or_reference():
     walked = out.stdout.split()
     assert len(walked) >= 30                      # every module was walked
     for mod in ("models.rglru", "kernels.rg_lru", "models.ssm",
-                "kernels.ssm_scan", "serve.engine", "launch.serve"):
+                "kernels.ssm_scan", "models.moe", "kernels.moe_dispatch",
+                "kernels.hash_probe", "serve.engine", "launch.serve"):
         assert f"repro_torch.{mod}" in walked
 
 
