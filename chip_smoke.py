@@ -8,12 +8,16 @@ check it end to end.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. build   — compile every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
-             one nvcc per source, all at once (into ``build/``).
+             one nvcc per source, all at once (into ``build/``); the
+             registers and spills of every attention kernel (``-Xptxas
+             -v``), and ``cuobjdump -sass``: each bf16 flash instance must
+             issue tensor-core instructions (HMMA), no float32 one may.
 2. kernels — each kernel against its plain torch version on the card, exact
              equality of outputs, count and carry: windows of 1, 127, 128,
              129 and 512 lanes, D in 1..5, random masks, barrier levels 1-3,
              all six reduce ops, open and closed carries, and N = 2^24.
-             Times (CUDA events) beside the bytes bound and a library call.
+             Times (CUDA events; eager and from a CUDA graph) beside the
+             bytes bound and a library call.
 3. apps    — the nine Table III apps at benchmark scale through
              ``repro_torch.revet`` on ``TorchBackend("cuda")``: DRAM, stats
              and expected outputs equal to the numpy oracle; both kernels'
@@ -23,8 +27,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              placed, replicated ``execute_batch``.
 5. attention — the flash and decode attention kernels against their plain
              versions (float32 2e-5, bfloat16 2e-2) at the LM path's shapes
-             and at large ones, with times beside the bound and
-             ``scaled_dot_product_attention`` as a yardstick.
+             (heads matched, and qwen2-0.5b's own 14 query heads on 2 kv
+             heads, read by index) and at large ones, with eager and CUDA
+             graph times beside the bound and ``scaled_dot_product_attention``
+             (``enable_gqa`` where the heads are grouped) as a yardstick.
 6. lm      — full-width qwen2-0.5b (random weights from seed 0) served by
              ``DecodeEngine`` (default ``impl="kernel"``) on 8 requests
              (prompts of 16-512 tokens): every prefill layer launches the
@@ -51,7 +57,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              100, 512, 4096}, D in {1, 100, 4096}, B in {1, 4}, zero and
              random h0, then at the path shape and a large one, with times
              beside the bound; flash and decode attention at head dim 256
-             (recurrentgemma-9b's heads) against their plain versions.
+             against their plain versions, with 16 kv heads and with
+             recurrentgemma-9b's own one kv head for 16 query heads.
 10. hybrid_lm — full-width, full-depth recurrentgemma-9b (random weights
              drawn on the card) served by ``DecodeEngine(max_len=4352)`` on
              the 8 requests and one 4096-token prompt, whose prefill takes
@@ -344,7 +351,9 @@ def phase_kernels(dev):
 
 
 def time_kernels(dev, sc, sr, rng):
-    """Times at one window of the main path and at 2^24 rows."""
+    """Times at one window of the main path and at 2^24 rows: eager (CUDA
+    events around a loop of calls) and from a CUDA graph (the host's issue
+    taken out)."""
     import numpy as np
     import torch
     rows = {}
@@ -355,6 +364,8 @@ def time_kernels(dev, sc, sr, rng):
         mask, vals, _ = _compact_case(sc, rng, n, d, 0.5, dev)
         rec = {"n": n, "d": d,
                "kernel_ms": time_ms(
+                   lambda: sc.stream_compact(mask, vals), iters),
+               "kernel_graph_ms": graph_ms(
                    lambda: sc.stream_compact(mask, vals), iters),
                "plain_ms": time_ms(
                    lambda: sc.stream_compact_plain(mask, vals), iters),
@@ -380,6 +391,8 @@ def time_kernels(dev, sc, sr, rng):
         data_f = torch.from_numpy(vals_np[~is_bar].astype(np.float32)).to(dev)
         rec = {"n": n, "emitted": m,
                "kernel_ms": time_ms(
+                   lambda: sr.segment_reduce(kinds, vals), iters),
+               "kernel_graph_ms": graph_ms(
                    lambda: sr.segment_reduce(kinds, vals), iters),
                "plain_ms": time_ms(
                    lambda: sr.segment_reduce_plain(kinds, vals), iters),
@@ -646,13 +659,15 @@ def phase_serve(tb):
 # phase 5: the attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _attn_inputs(rng, bh, sq, skv, d, dtype, dev):
+def _attn_inputs(rng, bh, sq, skv, d, dtype, dev, bhkv=None):
+    """q [bh, sq, d] and k/v [bhkv (default bh), skv, d]."""
     import torch
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             "float32")).to(dev, getattr(torch, dtype))
-    return t(bh, sq, d), t(bh, skv, d), t(bh, skv, d)
+    bhkv = bh if bhkv is None else bhkv
+    return t(bh, sq, d), t(bhkv, skv, d), t(bhkv, skv, d)
 
 
 def _attn_err(got, want, dtype, what) -> float:
@@ -673,66 +688,104 @@ def _bound(flops: float, nbytes: int, dtype: str) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
 
-def _flash_case(rng, bh, s, dtype, causal, iters, dev, d=64):
+def _flash_case(rng, bh, s, dtype, causal, iters, dev, d=64, bhkv=None):
+    """Flash over ``bh`` query rows of ``bhkv`` (default ``bh``) kv rows:
+    vs plain, eager and graph times, the bound and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = _attn_inputs(rng, bh, s, s, d, dtype, dev)
+    bhkv = bh if bhkv is None else bhkv
+    q, k, v = _attn_inputs(rng, bh, s, s, d, dtype, dev, bhkv)
     err = _attn_err(fa.flash_attention(q, k, v, causal),
                     fa.flash_attention_plain(q, k, v, causal), dtype,
-                    f"flash_attention bh={bh} s={s} {dtype} causal={causal}")
+                    f"flash_attention bh={bh}/{bhkv} s={s} d={d} {dtype} "
+                    f"causal={causal}")
     pairs = s * (s + 1) // 2 if causal else s * s   # (query, key) pairs seen
     size = q.element_size()
-    bound, by = _bound(4.0 * bh * pairs * d, 4 * bh * s * d * size, dtype)
-    # yardstick: top-left causal, as the kernel (Sq == Skv here)
-    lib = (q[None], k[None], v[None])
-    return {"bh": bh, "sq": s, "skv": s, "d": d, "dtype": dtype,
-            "causal": causal, "max_abs_err": err,
+    # q and out per query row, k and v once per kv row
+    bound, by = _bound(4.0 * bh * pairs * d,
+                       2 * bh * s * d * size + 2 * bhkv * s * d * size, dtype)
+
+    def sdpa():          # top-left causal, as the kernel (Sq == Skv here)
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal,
+            enable_gqa=bhkv != bh)
+
+    return {"bh": bh, "bhkv": bhkv, "sq": s, "skv": s, "d": d,
+            "dtype": dtype, "causal": causal, "max_abs_err": err,
             "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, causal),
                                  iters),
+            "kernel_graph_ms": graph_ms(
+                lambda: fa.flash_attention(q, k, v, causal), iters),
             "plain_ms": time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, causal), iters),
-            "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(*lib,
-                                                       is_causal=causal),
-                iters),
+            "library_ms": time_ms(sdpa, iters),
+            "library_graph_ms": graph_ms(sdpa, iters),
             "bound_ms": bound, "bound_by": by}
 
 
-def _decode_case(rng, bh, s, dtype, iters, dev, d=64):
+def _decode_case(rng, bh, s, dtype, iters, dev, d=64, bhkv=None):
+    """Decode of ``bh`` query rows over ``bhkv`` (default ``bh``) kv rows
+    with random lengths: vs plain, eager and graph times, the bound and
+    SDPA."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
+    bhkv = bh if bhkv is None else bhkv
+    g = bh // bhkv
     q, _, _ = _attn_inputs(rng, bh, 1, 1, d, dtype, dev)
-    _, k, v = _attn_inputs(rng, bh, 1, s, d, dtype, dev)
-    lens = rng.integers(1, s + 1, bh).astype(np.int32)
+    _, k, v = _attn_inputs(rng, bhkv, 1, s, d, dtype, dev)
+    lens = rng.integers(1, s + 1, bhkv).astype(np.int32)
     lengths = torch.from_numpy(lens).to(dev)
     err = _attn_err(da.decode_attention(q, k, v, lengths),
                     da.decode_attention_plain(q, k, v, lengths), dtype,
-                    f"decode_attention bh={bh} s={s} {dtype}")
+                    f"decode_attention bh={bh}/{bhkv} s={s} d={d} {dtype}")
     size = q.element_size()
     keys = int(np.minimum(lens, s).sum())          # what this data needs
-    bound, by = _bound(4.0 * keys * d,
-                       2 * keys * d * size + 2 * bh * d * size + 4 * bh,
+    # K and V once per kv row up to its length; q and out per query row
+    bound, by = _bound(4.0 * keys * d * g,
+                       2 * keys * d * size + 2 * bh * d * size + 4 * bhkv,
                        dtype)
     mask = (torch.arange(s, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    return {"bh": bh, "s": s, "d": d, "dtype": dtype, "keys": keys,
+    qg = q.reshape(bhkv, g, 1, d)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qg, k[:, None], v[:, None], attn_mask=mask, enable_gqa=g > 1)
+
+    n_split = da.split_plan(bhkv, s)
+    one_chunk = {}
+    if n_split > 1:      # what the split buys over one chunk a kv row
+
+        def whole():
+            return da._launch(q, k, v, lengths, g, 1)
+
+        err = max(err, _attn_err(whole(), da.decode_attention_plain(
+            q, k, v, lengths), dtype, f"decode_attention bh={bh}/{bhkv} "
+            f"s={s} d={d} {dtype} in one chunk"))
+        one_chunk = {"one_chunk_ms": time_ms(whole, iters),
+                     "one_chunk_graph_ms": graph_ms(whole, iters)}
+    return {"bh": bh, "bhkv": bhkv, "s": s, "d": d, "dtype": dtype,
+            "keys": keys, "n_split": n_split, **one_chunk,
             "max_abs_err": err,
             "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v,
                                                              lengths), iters),
+            "kernel_graph_ms": graph_ms(
+                lambda: da.decode_attention(q, k, v, lengths), iters),
             "plain_ms": time_ms(
                 lambda: da.decode_attention_plain(q, k, v, lengths), iters),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, None], k[:, None], v[:, None], attn_mask=mask), iters),
+            "library_ms": time_ms(sdpa, iters),
+            "library_graph_ms": graph_ms(sdpa, iters),
             "bound_ms": bound, "bound_by": by}
 
 
 def phase_attention(dev):
     """Both attention kernels at the LM path's shapes (qwen2-0.5b: 14 query
-    heads of 64, prompts of 16-512 tokens, a cache of LM_MAX_LEN for
-    LM_SLOTS slots) and at large ones.  Returns the rows for the kernels
-    line."""
+    heads of 64 on 2 kv heads, prompts of 16-512 tokens, a cache of
+    LM_MAX_LEN for LM_SLOTS slots), with the heads matched (as the first
+    version was measured) and grouped (as the served path calls them), and
+    at large ones.  Returns the rows for the kernels line."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 1)
@@ -744,10 +797,17 @@ def phase_attention(dev):
         flash.append(_flash_case(rng, 14, 512, dtype, False, 50, dev))
         decode.append(_decode_case(rng, LM_SLOTS * 14, LM_MAX_LEN, dtype, 50,
                                    dev))
+    # qwen2-0.5b's own head counts: 14 query heads on 2 kv heads (G = 7)
+    gqa_flash = [_flash_case(rng, 14, s, dtype, True, 50, dev, bhkv=2)
+                 for dtype in ("bfloat16", "float32") for s in (100, 512)]
+    gqa_decode = [_decode_case(rng, LM_SLOTS * 14, LM_MAX_LEN, dtype, 50,
+                               dev, bhkv=LM_SLOTS * 2)
+                  for dtype in ("bfloat16", "float32")]
     flash.append(_flash_case(rng, 56, 4096, "bfloat16", True, 3, dev))
     decode.append(_decode_case(rng, 56, 32768, "bfloat16", 10, dev))
-    # olmoe-1b-7b's heads: 16 of 128 over the 512-token prompt; the decode
-    # kernel over LM_SLOTS slots x 16 heads of the LM_MAX_LEN cache
+    # olmoe-1b-7b's heads: 16 of 128 (16 kv heads) over the 512-token
+    # prompt; the decode kernel over LM_SLOTS slots x 16 heads of the
+    # LM_MAX_LEN cache
     d128 = {"flash_attention": [], "decode_attention": []}
     for dtype in ("bfloat16", "float32"):
         d128["flash_attention"].append(
@@ -756,20 +816,24 @@ def phase_attention(dev):
             _decode_case(rng, LM_SLOTS * 16, LM_MAX_LEN, dtype, 50, dev,
                          d=128))
     torch.cuda.synchronize()
-    for name, rows in (("flash_attention", flash),
-                       ("decode_attention", decode)):
+    for name, rows in (("flash_attention", flash + gqa_flash),
+                       ("decode_attention", decode + gqa_decode)):
         for r in rows + d128[name]:
             emit({"phase": "attention", "kernel": name, **r})
     return {"flash_attention": {
-                "path": next(r for r in flash if r["sq"] == 512
-                             and r["causal"] and r["dtype"] == "bfloat16"),
+                "path": next(r for r in gqa_flash if r["sq"] == 512
+                             and r["dtype"] == "bfloat16"),
+                "matched": next(r for r in flash if r["sq"] == 512
+                                and r["causal"]
+                                and r["dtype"] == "bfloat16"),
                 "large": flash[-1], "max_abs_err": max(
-                    r["max_abs_err"] for r in flash if r["dtype"] ==
-                    "bfloat16")},
+                    r["max_abs_err"] for r in flash + gqa_flash
+                    if r["dtype"] == "bfloat16")},
             "decode_attention": {
-                "path": decode[0], "large": decode[-1], "max_abs_err": max(
-                    r["max_abs_err"] for r in decode if r["dtype"] ==
-                    "bfloat16")},
+                "path": gqa_decode[0], "matched": decode[0],
+                "large": decode[-1], "max_abs_err": max(
+                    r["max_abs_err"] for r in decode + gqa_decode
+                    if r["dtype"] == "bfloat16")},
             "d128": {k: v[0] for k, v in d128.items()}}
 
 
@@ -1418,23 +1482,29 @@ def phase_rglru_kernel(dev):
     emit({"phase": "rglru_kernel", "check": f"vs plain, {SSM_TOL} of the "
           "largest |plain|", "cases": cases, "max_abs_err": worst_abs,
           "max_err_over_scale": worst_rel})
-    # attention at recurrentgemma-9b's head dim: 16 query heads (its one kv
-    # head repeated) over the 512-token prompt; the decode kernel over 4
-    # slots x 16 heads of the 2048-row ring
+    # attention at recurrentgemma-9b's head dim: 16 query heads over the
+    # 512-token prompt, matched (16 kv rows, as the first version was
+    # measured) and on the model's one kv head (G = 16, as the served path
+    # calls it); the decode kernel over 4 slots x 16 heads of the 2048-row
+    # ring, likewise
     rng = np.random.default_rng(SEED + 6)
     d256 = {"flash_attention": [], "decode_attention": []}
     for dtype in ("bfloat16", "float32"):
-        d256["flash_attention"].append(
-            _flash_case(rng, 16, 512, dtype, True, 30, dev, d=256))
-        d256["decode_attention"].append(
-            _decode_case(rng, LM_SLOTS * 16, 2048, dtype, 50, dev, d=256))
+        for bhkv in (16, 1):
+            d256["flash_attention"].append(
+                _flash_case(rng, 16, 512, dtype, True, 30, dev, d=256,
+                            bhkv=bhkv))
+            d256["decode_attention"].append(
+                _decode_case(rng, LM_SLOTS * 16, 2048, dtype, 50, dev,
+                             d=256, bhkv=LM_SLOTS * bhkv))
     torch.cuda.synchronize()
     for name, recs in d256.items():
         for rec in recs:
             emit({"phase": "rglru_kernel", "kernel": name, "head_dim": 256,
                   **rec})
     return {"rg_lru": {**rows, "max_abs_err": worst_abs},
-            "d256": {k: v[0] for k, v in d256.items()}}
+            "d256": {k: v[0] for k, v in d256.items()},
+            "d256_gqa": {k: v[1] for k, v in d256.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2230,6 +2300,80 @@ def phase_moe_lm(dev):
 
 
 # ---------------------------------------------------------------------------
+# build: registers, spills and tensor-core instructions of the attention
+# kernels
+# ---------------------------------------------------------------------------
+
+def _demangle(names: list[str]) -> list[str]:
+    """``kernel<args>`` for each mangled name (the names as they are when
+    ``c++filt`` is missing)."""
+    import re
+    import shutil
+    if not names or not shutil.which("c++filt"):
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True).stdout.splitlines()
+    short = []
+    for name, full in zip(names, out):
+        m = re.findall(r"::(\w+(?:<[^()]*>)?)\(", full)
+        short.append(m[-1] if m else name)
+    return short
+
+
+def ptxas_by_function(log: str) -> list[dict]:
+    """Registers, spill bytes and static shared memory of every entry
+    function that ``-Xptxas -v`` reported in ``log``."""
+    import re
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", ln)
+                cur["static_smem"] = int(smem.group(1)) if smem else 0
+    for row, short in zip(rows, _demangle([r["function"] for r in rows])):
+        row["function"] = short
+    return rows
+
+
+def flash_sass_mma(build) -> dict:
+    """Tensor-core instructions (HMMA) in each function of the built
+    flash_attention library, from ``cuobjdump -sass``: the bfloat16
+    instances must issue them, the float32 ones must not (they stay on the
+    CUDA cores: tensor cores would mean TF32)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    counts = dict(zip(_demangle(list(counts)), counts.values()))
+    mma = {f: n for f, n in counts.items() if "flash_fwd_mma" in f}
+    f32 = {f: n for f, n in counts.items() if "flash_fwd_f32" in f}
+    require(len(mma) == 5 and all(mma.values()),
+            f"bf16 flash instances without HMMA: {mma}")
+    require(len(f32) == 5 and not any(f32.values()),
+            f"float32 flash instances with HMMA: {f32}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_ROWS = {
     "stream_compact": {
@@ -2246,10 +2390,16 @@ KERNEL_ROWS = {
         "replaces": "src/repro/kernels/moe_dispatch.py:28"},
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:25"},
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "design": "bf16: mma.sync m16n8k16, cp.async ring, 16 rows a "
+                  "warp; f32: CUDA-core FMAs; GQA by index"},
     "decode_attention": {
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:22"},
+        "replaces": "src/repro/kernels/decode_attention.py:22",
+        "design": "split-KV (chunks of >= 256 keys) + a combine kernel, "
+                  "all G heads of a kv row per block (bf16 2 <= G <= 16: "
+                  "an m16 mma.sync tile; else scalar lane groups), "
+                  "cp.async; GQA by index"},
     "ssm_scan": {
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:23"},
@@ -2281,6 +2431,10 @@ def main() -> int:
              for ln in log.splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": ptxas})
+    emit({"phase": "build", "ptxas_by_function": {
+        name: ptxas_by_function(_build.build_log.get(name, ""))
+        for name in ("flash_attention", "decode_attention")},
+        "flash_sass_mma": flash_sass_mma(_build)})
 
     # float32 products in full float32 (the tolerances assume it)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2309,6 +2463,8 @@ def main() -> int:
     timings["rg_lru"] = rg["rg_lru"]
     for name, rec in rg["d256"].items():
         timings[name]["d256"] = rec
+    for name, rec in rg["d256_gqa"].items():
+        timings[name]["d256_gqa"] = rec
     hybrid = timed("hybrid_lm", phase_hybrid_lm, dev)
     hash_rows, hash_path = timed("hash_kernel", phase_hash_kernel, dev)
     timings.update(hash_rows)
@@ -2346,17 +2502,23 @@ def main() -> int:
             "bound_ms": path["bound_ms"],
             "bound_by": path.get("bound_by", "bytes"),
             "library_ms": path["library_ms"],
+            **({"library_graph_ms": path["library_graph_ms"]}
+               if "library_graph_ms" in path else {}),
             **({"library_note": path["library_note"]}
                if path["library_ms"] is None else {}),
             "shape": {k: path[k] for k in ("b", "n", "d", "di", "emitted",
-                                           "bh", "sq", "skv", "s", "a", "e",
-                                           "c", "n_slots", "load", "dtype",
-                                           "causal") if k in path},
+                                           "bh", "bhkv", "sq", "skv", "s",
+                                           "a", "e", "c", "n_slots", "load",
+                                           "dtype", "causal", "n_split")
+                      if k in path},
             "large": timings[name]["large"],
             **({"head_dim_128": timings[name]["d128"]}
                if "d128" in timings[name] else {}),
             **({"head_dim_256": timings[name]["d256"]}
                if "d256" in timings[name] else {}),
+            **({"head_dim_256_gqa": timings[name]["d256_gqa"],
+                "matched_heads": timings[name]["matched"]}
+               if "d256_gqa" in timings[name] else {}),
             **({"launches_by_path": {p: c[name] for p, c in by_path.items()
                                      if c.get(name)}}
                if name in _lm_kernels() else {})})

@@ -40,7 +40,7 @@ AOT staging mirrors ``jax.jit(f).lower().compile()``:
 
     traced   = strlen.trace(spec_or_array, offs, count=n)   # lang.Prog built
     lowered  = traced.lower(CompileOptions(...))             # passes + DFG
-    compiled = lowered.compile(backend="jax")                # backend bound
+    compiled = lowered.compile(backend="torch")              # backend bound
 
 ``CompiledProgram.run_on(executor=...)`` is the cross-checking escape hatch:
 the same arrays run through the Golden language oracle, the token-level
@@ -131,8 +131,8 @@ _BACKEND_TOKENS: dict[str, tuple] = {}   # spec string -> resolved config
 def _backend_token(backend, options: CompileOptions) -> tuple:
     """Cache-key token for a backend spec.  Backends are stateless
     (DESIGN.md §3), so both instances and name specs key by resolved
-    *configuration* — ``backend="jax"`` and ``backend=JaxBackend()`` share
-    one compile-cache entry."""
+    *configuration* — ``backend="torch"`` and ``backend=TorchBackend()``
+    share one compile-cache entry."""
     def config(be: ExecutorBackend) -> tuple:
         return ("backend", type(be).__qualname__, be.name,
                 getattr(be, "interpret", None))
@@ -536,8 +536,8 @@ def run_fused(result: CompileResult, backend, requests: Sequence[tuple],
         if not be.supports_resident:
             raise ValueError(
                 f"execution='resident': backend {be.name!r} has no "
-                "resident path (the numpy oracle stays windowed; use "
-                "backend='jax')")
+                "resident path (the numpy oracle stays windowed; the "
+                "port's resident loop is ROADMAP Queue 1 item 1)")
         from .core.device_vm import bucket_launch_size, resident_unsupported
         reasons = resident_unsupported(result.dfg)
         if not reasons:

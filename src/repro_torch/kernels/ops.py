@@ -22,8 +22,11 @@ Attention (the reference's ``kernels/ops.py:582-859``, forward only):
 ``_grouped_ref``, and the chunked flash-style paths.  The reference's
 ``impl="pallas"`` route is ``impl="kernel"`` here: it launches the
 hand-written ``flash_attention`` / ``decode_attention`` kernels on a CUDA
-tensor and runs their plain torch versions on a CPU tensor.  ``"chunked"``
-and ``"ref"`` keep their meaning.  The flash backwards come with training.
+tensor and runs their plain torch versions on a CPU tensor.  Where the
+reference repeats kv heads to match q's before its kernels, the port's
+kernels index the kv row of each query row (GQA by index, no copy).
+``"chunked"`` and ``"ref"`` keep their meaning.  The flash backwards come
+with training.
 
 Recurrences (the reference's ``kernels/ops.py:862-979``): ``ssm`` and
 ``rg_lru_scan`` with ``impl="kernel"`` launch the hand-written ``ssm_scan``
@@ -281,21 +284,26 @@ def mha(q, k, v, causal: bool = True, impl: str = "kernel",
         flat: bool = False):
     """Multi-head attention with GQA. q [B, Hq, S, D], k/v [B, Hkv, S, D].
 
-    ``"kernel"`` (or ``flat``) folds heads into the batch, with kv heads
-    repeated to match q's, for the flat kernel call; ``"chunked"`` and
-    ``"ref"`` run grouped 5-D attention (q viewed as [B, Hkv, G, S, D], kv
-    never repeated)."""
+    ``"kernel"`` folds heads into the batch and passes K/V as they are
+    (the kernel reads kv row ``bh // G`` for query row ``bh``); ``flat``
+    with ``"chunked"``/``"ref"`` folds heads with kv heads repeated to
+    match q's; otherwise ``"chunked"`` and ``"ref"`` run grouped 5-D
+    attention (q viewed as [B, Hkv, G, S, D], kv never repeated)."""
     _check_impl(impl)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    if impl == "kernel" or flat:
+    if impl == "kernel":
+        out = flash_attention(q.reshape(b * hq, sq, d).contiguous(),
+                              k.reshape(b * hkv, -1, d).contiguous(),
+                              v.reshape(b * hkv, -1, d).contiguous(),
+                              causal=causal)
+        return out.reshape(b, hq, sq, d)
+    if flat:
         k, v = _match_heads(k, hq), _match_heads(v, hq)
         qf = q.reshape(b * hq, sq, d).contiguous()
         kf = k.reshape(b * hq, -1, d).contiguous()
         vf = v.reshape(b * hq, -1, d).contiguous()
-        if impl == "kernel":
-            out = flash_attention(qf, kf, vf, causal=causal)
-        elif impl == "chunked":
+        if impl == "chunked":
             out = chunked_attention(qf, kf, vf, causal=causal)
         else:
             out = _ref.attention_ref(qf, kf, vf, causal=causal)
@@ -410,20 +418,20 @@ def grouped_chunked_attention(qg, k, v, causal: bool = True,
 def decode_mha(q, k, v, lengths, impl: str = "kernel"):
     """Decode attention. q [B, Hq, 1, D], k/v [B, Hkv, S, D], lengths [B].
 
-    ``"kernel"`` folds heads into the batch (kv repeated, lengths repeated
-    per head) for the flat ``decode_attention`` call; any other impl runs
-    the grouped full-softmax reference, as the reference's non-pallas path
+    ``"kernel"`` folds heads into the batch for the flat
+    ``decode_attention`` call: K/V as they are (query row ``r`` reads kv
+    row ``r // G``), one length per kv row; any other impl runs the
+    grouped full-softmax reference, as the reference's non-pallas path
     does."""
     _check_impl(impl)
     b, hq, _, d = q.shape
     hkv = k.shape[1]
     if impl == "kernel":
-        k, v = _match_heads(k, hq), _match_heads(v, hq)
-        qf = q.reshape(b * hq, 1, d).contiguous()
-        kf = k.reshape(b * hq, -1, d).contiguous()
-        vf = v.reshape(b * hq, -1, d).contiguous()
-        lens = lengths.to(torch.int32).repeat_interleave(hq)
-        out = decode_attention(qf, kf, vf, lens)
+        lens = lengths.to(torch.int32)[:, None].expand(b, hkv).reshape(-1)
+        out = decode_attention(q.reshape(b * hq, 1, d).contiguous(),
+                               k.reshape(b * hkv, -1, d).contiguous(),
+                               v.reshape(b * hkv, -1, d).contiguous(),
+                               lens.contiguous())
         return out.reshape(b, hq, 1, d)
     qg = q.reshape(b, hkv, hq // hkv, 1, d)
     out = _grouped_ref(qg, k, v, causal=False, lengths=lengths)

@@ -51,8 +51,8 @@ _FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm, "hybrid": rglru}
 
 # where each family not yet ported stands in ROADMAP.md
 _PENDING = {
-    "encdec": "Queue 1 item 9 (models/encdec.py)",
-    "vlm": "Queue 1 item 9 (models/vlm.py)",
+    "encdec": "Queue 1 item 3 (models/encdec.py)",
+    "vlm": "Queue 1 item 3 (models/vlm.py)",
 }
 
 

@@ -79,18 +79,21 @@ class DataflowEngine:
 
     ``execution`` selects the execution mode for every launch this engine
     makes: ``"resident"`` serves each batch as one fused device launch
-    (DESIGN.md §9 — jax backends; replicas do not apply there), ``None``
-    follows the compiled ``CompileOptions.execution``.
+    (DESIGN.md §9 — backends with ``supports_resident``; replicas do not
+    apply there), ``None`` follows the compiled
+    ``CompileOptions.execution``.
 
     ``bucket_sizes`` pads each fused launch up to a small fixed set of
     ``n_requests`` sizes so a jit-compiling backend sees a *bounded* set of
     launch shapes instead of one per queue length: ``"auto"`` uses powers
-    of two on jax backends and no padding on numpy (which has no compile
-    cache to thrash); an explicit tuple pins the buckets; ``None`` disables
-    padding.  Pad slots replay the batch's last request and their responses
-    are dropped — the padding *work* is real (and lands in ``agg``), the
-    recompiles it prevents cost more (the BENCH_serve hash_table jax
-    batch=4 regression was exactly this).
+    of two on a backend with a resident path (``supports_resident``, whose
+    fused launch compiles per shape) and no padding otherwise (numpy and
+    today's windowed ``TorchBackend`` have no compile cache to thrash); an
+    explicit tuple pins the buckets; ``None`` disables padding.  Pad slots
+    replay the batch's last request and their responses are dropped — the
+    padding *work* is real (and lands in ``agg``), the recompiles it
+    prevents cost more (the BENCH_serve hash_table jax batch=4 regression
+    was exactly this).
     """
 
     def __init__(self, prog: Union[CompiledProgram, object],
@@ -119,7 +122,7 @@ class DataflowEngine:
         self.execution = execution
         if bucket_sizes == "auto":
             bucket_sizes = ((1, 2, 4, 8, 16, 32, 64)
-                            if self.backend.name.startswith("jax") else None)
+                            if self.backend.supports_resident else None)
         self.bucket_sizes = tuple(sorted(bucket_sizes)) if bucket_sizes \
             else None
         self.queue_cap = queue_cap

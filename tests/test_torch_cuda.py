@@ -148,6 +148,66 @@ def test_cuda_decode_attention_matches_plain(cuda_device, d, dtype):
                                    atol=TOL[dtype], rtol=TOL[dtype])
 
 
+GQA_GROUPS = (1, 2, 7, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", GQA_GROUPS)
+def test_cuda_flash_attention_gqa_matches_plain(cuda_device, d, dtype, g):
+    """G query rows per kv row (query row bh reads kv row bh // G); Sq !=
+    Skv both ways, and lengths that are no multiple of any tile (16, 32 or
+    64 keys; 64 query rows)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(1000 * g + d)
+    for bhkv, sq, skv in ((2, 100, 100), (1, 17, 130), (2, 130, 17),
+                          (1, 65, 1), (1, 300, 300)):
+        q, _, _ = _qkv(rng, bhkv * g, sq, 1, d, dtype, cuda_device)
+        _, k, v = _qkv(rng, bhkv, 1, skv, d, dtype, cuda_device)
+        for causal in (True, False):
+            before = fa.flash_attention.launches
+            got = fa.flash_attention(q, k, v, causal=causal)
+            assert fa.flash_attention.launches == before + 1
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", GQA_GROUPS)
+def test_cuda_decode_attention_split_matches_plain(cuda_device, d, dtype, g):
+    """The kernel at the chunk counts its shapes plan (1 chunk of 64 keys,
+    3 of 334, 16 of 257), G query rows per kv row, lengths 0, 1, S, past S
+    and inside / at the edge of a chunk; one launch counted per call,
+    though more than one chunk runs two device kernels.  The kernel is
+    also held to the plain split merge."""
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(2000 * g + d)
+    for bhkv, s, n_split in ((6, 1000, 3), (3, 4099, 16), (2, 64, 1)):
+        assert da.split_plan(bhkv, s) == n_split
+        q, _, _ = _qkv(rng, bhkv * g, 1, 1, d, dtype, cuda_device)
+        _, k, v = _qkv(rng, bhkv, 1, s, d, dtype, cuda_device)
+        chunk = -(-s // n_split)
+        lens = rng.integers(1, s + 1, bhkv)
+        lens[:2] = (0, s + 5)
+        if bhkv > 2:
+            lens[2:6] = (1, s, chunk, 2 * chunk + 1)[:bhkv - 2]
+        lengths = torch.from_numpy(lens.astype(np.int32)).to(cuda_device)
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, k, v, lengths)
+        assert da.decode_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        for want in (da.decode_attention_plain(q, k, v, lengths),
+                     da.decode_attention_split_plain(q, k, v, lengths,
+                                                     n_split)):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     from repro_torch.kernels.decode_attention import decode_attention
@@ -165,6 +225,12 @@ def test_cuda_attention_kernels_refuse_what_they_cannot_take(cuda_device):
                                cuda_device)[:1],
                          *_qkv(rng, 2, 8, 8, 48, torch.float32,
                                cuda_device)[1:], lengths)
+    # GQA: BHq must be a multiple of BHkv
+    q, k, v = _qkv(rng, 3, 8, 8, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="not a multiple of BHkv"):
+        flash_attention(q, k[:2], v[:2])
+    with pytest.raises(ValueError, match="not a multiple of BHkv"):
+        decode_attention(q[:, :1], k[:2], v[:2], lengths)
 
 
 @pytest.mark.cuda
@@ -200,6 +266,54 @@ def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
     assert runs["kernel"][2] == 5 * cfg.n_layers
     assert runs["naive"][2] == 0
     assert runs["kernel"][:2] == runs["naive"][:2]
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_qwen2_routes_part_only_at_near_ties(cuda_device):
+    """Where the kernel engine's greedy tokens leave the plain engine's
+    (the bf16 flash rounds P to bf16 before P V; the plain route does not),
+    the first differing step is a near tie: fed the kernel engine's tokens
+    up to that step, each route puts the two tokens' logits within 2 bf16
+    steps of each other.  Prints each such step and its margins."""
+    import math
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.zoo import get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = get_reduced("qwen2-0.5b")
+    zoo = get_model(cfg)
+    params = zoo.init_params(0)
+    served = {}
+    for impl in ("kernel", "naive"):
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab, size=int(rng.integers(4, 17))).astype(np.int32),
+            max_new=6) for i in range(5)]
+        eng = DecodeEngine(zoo, params, 3, 32, impl=impl)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        served[impl] = reqs
+    for rk, rn in zip(served["kernel"], served["naive"]):
+        first = next((i for i, (a, b) in enumerate(zip(rk.tokens, rn.tokens))
+                      if a != b), None)
+        if first is None:
+            continue
+        tk, tn = rk.tokens[first], rn.tokens[first]
+        for impl in ("kernel", "naive"):
+            toks = torch.as_tensor(rk.prompt, device=cuda_device)[None]
+            lg, cache, pos = zoo.prefill(params, {"tokens": toks}, 32,
+                                         impl=impl)
+            for t in rk.tokens[:first]:
+                lg, cache, pos = zoo.decode_step(params, torch.tensor(
+                    [[t]], dtype=torch.int32, device=cuda_device), cache,
+                    pos)
+            x = lg[0, -1, :cfg.vocab].float()
+            step = 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+            margin = abs(float(x[tk]) - float(x[tn])) / step
+            print(f"rid {rk.rid} step {first}: kernel token {tk}, plain "
+                  f"token {tn}; {impl} route logits {float(x[tk])}, "
+                  f"{float(x[tn])}: {margin} bf16 steps of {step}")
+            assert margin <= 2, (rk.rid, first, impl, margin)
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,43 @@ def test_resident_execution_is_refused():
                                execution="resident")
 
 
+def test_resident_refusal_points_at_the_ports_own_path():
+    """The refusal names the port's resident loop, not the JAX package's
+    backend (``make_backend("jax")`` raises in the port)."""
+    from repro_torch.apps import ALL_APPS
+    app = ALL_APPS["murmur3"]()
+    compiled = app.fn.lower(**app.dram_init, **app.params,
+                            **app.statics).compile(TorchBackend("cpu"))
+    with pytest.raises(ValueError, match="Queue 1 item 1") as err:
+        compiled.execute_batch([(app.dram_init, app.params)],
+                               execution="resident")
+    assert "jax" not in str(err.value)
+    with pytest.raises(ValueError, match="unknown executor backend"):
+        make_backend("jax")
+
+
+class _ResidentCPU(TorchBackend):
+    """A CPU ``TorchBackend`` that claims a resident path (only the engine's
+    bucket choice reads the flag here)."""
+    supports_resident = True
+
+
+@pytest.mark.parametrize("backend,want", [
+    (lambda: TorchBackend("cpu"), None),
+    (lambda: make_backend("numpy"), None),
+    (lambda: _ResidentCPU("cpu"), (1, 2, 4, 8, 16, 32, 64))])
+def test_dataflow_buckets_follow_supports_resident(backend, want):
+    """``bucket_sizes="auto"`` pads launches only on a backend with a
+    resident path, whatever its name."""
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.serve.dataflow import DataflowEngine
+    app = ALL_APPS["murmur3"]()
+    compiled = app.fn.lower(**app.dram_init, **app.params,
+                            **app.statics).compile(TorchBackend("cpu"))
+    eng = DataflowEngine(compiled, backend=backend())
+    assert eng.bucket_sizes == want
+
+
 def _dfg_summary(dfg):
     """Dataclass reprs name no module, so equal graphs of the two packages
     print the same — once each ``replicate_group`` (an ``id()`` of the

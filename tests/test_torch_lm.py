@@ -135,6 +135,15 @@ def test_other_families_raise(arch):
         get_model(get_reduced(arch))
 
 
+@pytest.mark.parametrize("arch,module", [("seamless-m4t-medium", "encdec"),
+                                         ("internvl2-1b", "vlm")])
+def test_other_families_name_their_queue_item(arch, module):
+    """The message points at the item that ports the family."""
+    with pytest.raises(NotImplementedError,
+                       match=rf"Queue 1 item 3 \(models/{module}\.py\)"):
+        get_model(get_reduced(arch))
+
+
 # ---------------------------------------------------------------------------
 # attention kernels: plain versions against the reference kernels
 # ---------------------------------------------------------------------------
