@@ -9,15 +9,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. build   — compile every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
              one nvcc per source, all at once (into ``build/``); the
-             registers and spills of every attention kernel (``-Xptxas
-             -v``), and ``cuobjdump -sass``: each bf16 flash instance must
-             issue tensor-core instructions (HMMA), no float32 one may.
+             registers and spills of every attention and scan kernel
+             (``-Xptxas -v``), and ``cuobjdump -sass``: each bf16 flash
+             instance must issue tensor-core instructions (HMMA), no float32
+             one may.
 2. kernels — each kernel against its plain torch version on the card, exact
-             equality of outputs, count and carry: windows of 1, 127, 128,
-             129 and 512 lanes, D in 1..5, random masks, barrier levels 1-3,
-             all six reduce ops, open and closed carries, and N = 2^24.
-             Times (CUDA events; eager and from a CUDA graph) beside the
-             bytes bound and a library call.
+             equality of outputs (zeros past the count included), count and
+             carry: windows of 1, 127, 128, 129 and 512 lanes, D in 1..5,
+             random masks, barrier levels 1-3, all six reduce ops, open and
+             closed carries, N = 2^24; windows around the kernels' tile
+             (TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1, 3 TILE_ROWS + 5) with
+             barriers on the tile edges, a segment over every tile, barriers
+             only, Omega-2 opening a tile (also after a tile that emits
+             nothing, under a closed carry with acc != init).  Times (CUDA
+             events; eager and from a CUDA graph, each replay held to the
+             plain version) beside the bytes bound and a library call (from
+             a graph where it can be captured); the kernels and memsets of
+             one call (torch.profiler): exactly one kernel at N = 128, one
+             kernel and at most two memsets at 2^24.
 3. apps    — the nine Table III apps at benchmark scale through
              ``repro_torch.revet`` on ``TorchBackend("cuda")``: DRAM, stats
              and expected outputs equal to the numpy oracle; both kernels'
@@ -41,8 +50,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 7. ssm_kernel — the ssm_scan kernel against its plain version (2e-5 of the
              largest |plain| value, on y and hT) over S in {1, 63, 64, 100,
              512}, Di in {128, 1000, 8192}, N in {8, 16}, zero and random
-             h0, then at the path shape and a large one, with times beside
-             the bound (no PyTorch call computes a selective scan).
+             h0, then at the path shape and a large one, with times (eager
+             and from a CUDA graph) beside the bound (no PyTorch call
+             computes a selective scan).
 8. ssm_lm  — full-width, full-depth falcon-mamba-7b (random weights drawn
              on the card) served by ``DecodeEngine`` on the same 8
              requests; then ``ssm.forward(impl="kernel")`` over each
@@ -224,12 +234,13 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int, reps: int = 5) -> float:
+def graph_ms(fn, iters: int, reps: int = 5, check=None) -> float:
     """Mean device time of ``fn`` with the host taken out: ``iters`` calls
     captured in one CUDA graph, replayed ``reps`` times between CUDA
     events.  A loop of eager calls (``time_ms``) also counts the gaps while
     the host issues the next launch, which dominate a kernel of a few
-    microseconds."""
+    microseconds.  ``check``, if given, is called on the last captured
+    call's output after the replays (what the last replay left there)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -240,7 +251,7 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -250,7 +261,51 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    if check is not None:
+        check(out)
     return start.elapsed_time(end) / (iters * reps)
+
+
+def launches_per_call(fn, calls: int = 4) -> dict:
+    """CUDA kernels and memsets that one call of ``fn`` puts on the card,
+    counted by torch.profiler over ``calls`` calls after a warm one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    memsets = sum("memset" in x.lower() for x in names)
+    return {"kernels": (len(names) - memsets) / calls,
+            "memsets": memsets / calls}
+
+
+def library_graph(fn, iters: int, what: str) -> dict:
+    """``library_graph_ms`` of a library call from a CUDA graph, or None and
+    the reason where the call synchronises the host with the card (torch's
+    sync debug mode raises), which a graph cannot capture."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        syncs = False
+    except RuntimeError:
+        syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if syncs:
+        return {"library_graph_ms": None,
+                "library_graph_note": f"none: {what} syncs the host (its "
+                                      "output size or a check of its input "
+                                      "is read back), so a CUDA graph "
+                                      "cannot capture it"}
+    return {"library_graph_ms": graph_ms(fn, iters)}
 
 
 def bytes_ms(nbytes: int) -> float:
@@ -299,14 +354,98 @@ def _segred_case(sr, kinds_np, vals_np, op, init, acc, go, dev):
             else torch.from_numpy(vals_np.astype(np.int32)).to(dev))
     got = sr.segment_reduce(kinds, vals, init, op, acc, go)
     want = sr.segment_reduce_plain(kinds, vals, init, op, acc, go)
-    m = int(want[2])
-    same = (int(got[2]) == m and torch.equal(got[3], want[3])
-            and torch.equal(got[0][:m], want[0][:m])
-            and torch.equal(got[1][:m], want[1][:m]))
-    require(same, f"segment_reduce differs from plain at n={len(kinds_np)} "
-                  f"op={op} init={init} acc={acc} open={go} "
-                  f"vals={'none' if vals_np is None else 'yes'}")
-    return kinds, vals, m
+    require(_same_segred(got, want),
+            f"segment_reduce differs from plain at n={len(kinds_np)} "
+            f"op={op} init={init} acc={acc} open={go} "
+            f"vals={'none' if vals_np is None else 'yes'}")
+    return kinds, vals, int(want[2])
+
+
+def _same_segred(got, want) -> bool:
+    """Count, carry, and both output arrays, zeros past the count included."""
+    import torch
+    return (int(got[2]) == int(want[2]) and torch.equal(got[3], want[3])
+            and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def _edge_kinds(rng, n, tile):
+    """Barrier patterns across the edges of ``tile``-token tiles: random;
+    barriers either side of each edge; one open segment over every tile;
+    barriers only; Omega-2 opening each tile after a closed group; Omega-2
+    opening tile 1 after a tile 0 that emits nothing (a closed carry with
+    acc != init reaches it)."""
+    import numpy as np
+    random = rng.choice([0, 0, 0, 1, 2, 3], size=n).astype(np.int64)
+    edges = np.zeros(n, np.int64)
+    for e in range(tile, n + 1, tile):
+        edges[e - 1] = rng.integers(1, 4)
+        if e < n:
+            edges[e] = rng.integers(1, 4)
+    spanning = np.zeros(n, np.int64)
+    spanning[-1] = 2
+    omega2 = rng.choice([0, 0, 0, 1, 2], size=n).astype(np.int64)
+    for e in range(tile, n, tile):
+        omega2[e - 1], omega2[e] = 1, 2
+    quiet = rng.choice([0, 0, 0, 1, 2, 3], size=n).astype(np.int64)
+    quiet[:tile] = rng.integers(2, 4, size=min(tile, n))
+    if n > tile:
+        quiet[tile] = 2
+    return {"random": random, "edges": edges, "spanning": spanning,
+            "bars_only": rng.integers(1, 4, size=n).astype(np.int64),
+            "omega2": omega2, "quiet": quiet}
+
+
+def _tile_edge_cases(sc, sr, rng, dev) -> int:
+    """Both kernels on windows of TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1
+    and 3 TILE_ROWS + 5 tokens: every barrier pattern of ``_edge_kinds``,
+    every op, values and none, open / closed / degenerate carries; masks
+    keeping nothing, everything, the edge rows, random rows.  One case of
+    each kernel per length also runs from a CUDA graph, held to the plain
+    version after the replays."""
+    import numpy as np
+    import torch
+    tile = sr.TILE_ROWS
+    require(sc.TILE_ROWS == tile, "the two kernels' tiles differ")
+    cases = 0
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 5):
+        vals = rng.integers(I32_MIN, I32_MAX, n, dtype=np.int64)
+        for kinds in _edge_kinds(rng, n, tile).values():
+            for op in sr.OPS:
+                for go, acc in ((True, 5), (False, 1), (False, -9)):
+                    for v in (vals, None):
+                        _segred_case(sr, kinds, v, op, 1, acc, go, dev)
+                        cases += 1
+        edge = np.zeros(n, np.int32)
+        edge[[e for t in range(tile, n + 1, tile) for e in (t - 1, t)
+              if e < n]] = 1
+        for keep in (np.zeros(n, np.int32), np.ones(n, np.int32), edge,
+                     (rng.random(n) < 0.5).astype(np.int32)):
+            mask = torch.from_numpy(keep).to(dev)
+            for d in (1, 4, 40):
+                rows = torch.from_numpy(rng.integers(
+                    I32_MIN, I32_MAX, (n, d), dtype=np.int64)
+                    .astype(np.int32)).to(dev)
+                out, cnt = sc.stream_compact(mask, rows)
+                want, wcnt = sc.stream_compact_plain(mask, rows)
+                require(int(cnt) == int(wcnt) and torch.equal(out, want),
+                        f"stream_compact differs from plain at n={n} d={d}")
+                cases += 1
+        kinds, vals_t, _ = _segred_case(
+            sr, _edge_kinds(rng, n, tile)["spanning"], vals, "min", 1, 5,
+            True, dev)
+        want_r = sr.segment_reduce_plain(kinds, vals_t, 1, "min", 5, True)
+        graph_ms(lambda: sr.segment_reduce(kinds, vals_t, 1, "min", 5, True),
+                 2, reps=2, check=lambda got: require(
+                     _same_segred(got, want_r),
+                     f"segment_reduce replayed differs from plain at n={n}"))
+        want_c = sc.stream_compact_plain(mask, rows)
+        graph_ms(lambda: sc.stream_compact(mask, rows), 2, reps=2,
+                 check=lambda got: require(
+                     int(got[1]) == int(want_c[1])
+                     and torch.equal(got[0], want_c[0]),
+                     f"stream_compact replayed differs from plain at n={n}"))
+        cases += 2
+    return cases
 
 
 def phase_kernels(dev):
@@ -345,6 +484,7 @@ def phase_kernels(dev):
     _segred_case(sr, long_seg, np.full(1 << 20, 0xFFFF, np.int64), "add",
                  0, 0, False, dev)
     cases += 1
+    cases += _tile_edge_cases(sc, sr, rng, dev)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "check": "exact vs plain", "cases": cases})
     return time_kernels(dev, sc, sr, rng)
@@ -353,7 +493,9 @@ def phase_kernels(dev):
 def time_kernels(dev, sc, sr, rng):
     """Times at one window of the main path and at 2^24 rows: eager (CUDA
     events around a loop of calls) and from a CUDA graph (the host's issue
-    taken out)."""
+    taken out, the replay held to the plain version); the kernels and
+    memsets a call puts on the card (torch.profiler); a library call beside
+    each, eager and, where it can be captured, from a graph."""
     import numpy as np
     import torch
     rows = {}
@@ -362,18 +504,31 @@ def time_kernels(dev, sc, sr, rng):
     for label, n, d, iters in (("path", 128, 4, 300),
                                ("large", LARGE_N, 1, 10)):
         mask, vals, _ = _compact_case(sc, rng, n, d, 0.5, dev)
+        want, wcnt = sc.stream_compact_plain(mask, vals)
+
+        def same(got):
+            require(int(got[1]) == int(wcnt) and torch.equal(got[0], want),
+                    f"stream_compact replayed differs from plain at n={n}")
+
+        def library():
+            return vals[mask.bool()]
         rec = {"n": n, "d": d,
                "kernel_ms": time_ms(
                    lambda: sc.stream_compact(mask, vals), iters),
                "kernel_graph_ms": graph_ms(
-                   lambda: sc.stream_compact(mask, vals), iters),
+                   lambda: sc.stream_compact(mask, vals), iters, check=same),
+               "kernels_per_call": launches_per_call(
+                   lambda: sc.stream_compact(mask, vals)),
                "plain_ms": time_ms(
                    lambda: sc.stream_compact_plain(mask, vals), iters),
-               "library_ms": time_ms(lambda: vals[mask.bool()], iters),
+               "library_ms": time_ms(library, iters),
                "library": "vals[mask.bool()]",
                "bound_ms": bytes_ms(4 * n + 8 * n * d + 4)}
+        rec.update(library_graph(library, iters, "vals[mask.bool()]"))
+        if label == "large":       # what a memset of the output would add
+            flat = torch.empty(n * d + 1, dtype=torch.int32, device=dev)
+            rec["zero_fill_ms"] = graph_ms(flat.zero_, iters)
         out, _ = sc.stream_compact(mask, vals)
-        want, _ = sc.stream_compact_plain(mask, vals)
         rec["max_abs_err"] = _max_err(out, want)
         rows.setdefault("stream_compact", {})[label] = rec
         emit({"phase": "kernels", "kernel": "stream_compact", "shape": label,
@@ -382,6 +537,7 @@ def time_kernels(dev, sc, sr, rng):
         kinds_np, vals_np = _segred_window(rng, n, 3)
         kinds, vals, m = _segred_case(sr, kinds_np, vals_np, "add", 0, 0,
                                       False, dev)
+        want = sr.segment_reduce_plain(kinds, vals)
         # yardstick: torch.segment_reduce sums the same segments (data
         # tokens only, float32) — partial: no carry, no emission protocol
         is_bar = kinds_np > 0
@@ -389,25 +545,43 @@ def time_kernels(dev, sc, sr, rng):
         lengths = torch.from_numpy(np.bincount(
             seg[~is_bar], minlength=int(is_bar.sum()) + 1)).to(dev)
         data_f = torch.from_numpy(vals_np[~is_bar].astype(np.float32)).to(dev)
+
+        def library():
+            return torch.segment_reduce(data_f, "sum", lengths=lengths)
         rec = {"n": n, "emitted": m,
                "kernel_ms": time_ms(
                    lambda: sr.segment_reduce(kinds, vals), iters),
                "kernel_graph_ms": graph_ms(
-                   lambda: sr.segment_reduce(kinds, vals), iters),
+                   lambda: sr.segment_reduce(kinds, vals), iters,
+                   check=lambda got: require(
+                       _same_segred(got, want),
+                       f"segment_reduce replayed differs from plain at "
+                       f"n={n}")),
+               "kernels_per_call": launches_per_call(
+                   lambda: sr.segment_reduce(kinds, vals)),
                "plain_ms": time_ms(
                    lambda: sr.segment_reduce_plain(kinds, vals), iters),
-               "library_ms": time_ms(lambda: torch.segment_reduce(
-                   data_f, "sum", lengths=lengths), iters),
+               "library_ms": time_ms(library, iters),
                "library": "torch.segment_reduce(sum, float32) — partial "
                           "yardstick: segment sums only",
-               "bound_ms": bytes_ms(8 * n + 8 * m + 12)}
+               # the whole output: 2N kinds and 2N values (zeros past the
+               # count), count and carry
+               "bound_ms": bytes_ms(8 * n + 16 * n + 12),
+               "bound_emitted_ms": bytes_ms(8 * n + 8 * m + 12)}
+        rec.update(library_graph(library, iters, "torch.segment_reduce"))
         got = sr.segment_reduce(kinds, vals)
-        want = sr.segment_reduce_plain(kinds, vals)
-        rec["max_abs_err"] = max(_max_err(got[0][:m], want[0][:m]),
-                                 _max_err(got[1][:m], want[1][:m]))
+        rec["max_abs_err"] = max(_max_err(got[0], want[0]),
+                                 _max_err(got[1], want[1]))
         rows.setdefault("segment_reduce", {})[label] = rec
         emit({"phase": "kernels", "kernel": "segment_reduce", "shape": label,
               **rec})
+    for name, rec in rows.items():
+        per = rec["path"]["kernels_per_call"]
+        require(per == {"kernels": 1, "memsets": 0},
+                f"{name} at N = 128 puts {per} on the card, not one kernel")
+        per = rec["large"]["kernels_per_call"]
+        require(per["kernels"] == 1 and per["memsets"] <= 2,
+                f"{name} at N = 2^24 puts {per} on the card")
     torch.cuda.synchronize()
     return rows
 
@@ -1180,6 +1354,7 @@ def phase_ssm_kernel(dev):
         rec = {"b": shape[0], "s": shape[1], "di": shape[2], "n": shape[3],
                "max_abs_err": e, "max_err_over_scale": r,
                "kernel_ms": time_ms(lambda: sc.ssm_scan(*ins), iters),
+               "kernel_graph_ms": graph_ms(lambda: sc.ssm_scan(*ins), iters),
                "plain_ms": time_ms(lambda: sc.ssm_scan_plain(*ins),
                                    plain_iters, warmup=1),
                "library_ms": None,
@@ -2433,7 +2608,8 @@ def main() -> int:
           "per_source_s": per_source, "ptxas": ptxas})
     emit({"phase": "build", "ptxas_by_function": {
         name: ptxas_by_function(_build.build_log.get(name, ""))
-        for name in ("flash_attention", "decode_attention")},
+        for name in ("flash_attention", "decode_attention", "stream_compact",
+                     "segment_reduce")},
         "flash_sass_mma": flash_sass_mma(_build)})
 
     # float32 products in full float32 (the tolerances assume it)
@@ -2502,8 +2678,8 @@ def main() -> int:
             "bound_ms": path["bound_ms"],
             "bound_by": path.get("bound_by", "bytes"),
             "library_ms": path["library_ms"],
-            **({"library_graph_ms": path["library_graph_ms"]}
-               if "library_graph_ms" in path else {}),
+            **({k: path[k] for k in ("library_graph_ms", "library_graph_note",
+                                     "kernels_per_call") if k in path}),
             **({"library_note": path["library_note"]}
                if path["library_ms"] is None else {}),
             "shape": {k: path[k] for k in ("b", "n", "d", "di", "emitted",

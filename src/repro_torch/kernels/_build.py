@@ -112,6 +112,13 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_tile_rows(built: int, wrapper: int, what: str) -> None:
+    """Raise if a library's tile size is not the one its wrapper assumes."""
+    if built != wrapper:
+        raise RuntimeError(f"{what}: the library tiles {built} rows, the "
+                           f"wrapper's TILE_ROWS is {wrapper}")
+
+
 def check(lib: ctypes.CDLL, what: str, err: int) -> None:
     """Raise if an entry point returned a CUDA error."""
     if err:

@@ -1,10 +1,9 @@
-// Shared pieces of the hand-written Hopper kernels: tile geometry, the
-// in-order local prefix of a per-row flag, and the single-block exclusive
-// scan that turns per-tile counts into per-tile output offsets.
-//
-// Every kernel of this package walks its rows in tiles of kTile rows: a
-// block of kThreads threads takes kItems rows per thread, one row per thread
-// per step, so neighbouring threads touch neighbouring rows.
+// Shared pieces of the hand-written Hopper kernels: the block size, the
+// error text of an entry point, and the parts of the two tile scans
+// (stream_compact, segment_reduce): tile geometry, 16-byte loads that stop
+// at the window's end, the status words of a decoupled look-back (relaxed,
+// or release/acquire where a payload word rides beside them), the size of a
+// grid whose blocks loop over tiles, and the zero fill of an output's tail.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,75 +12,100 @@
 namespace repro {
 
 constexpr int kThreads = 256;              // threads per block
-constexpr int kItems = 4;                  // steps per tile
-constexpr int kTile = kThreads * kItems;   // rows per tile
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;         // 32 warps: one warp scans them
 constexpr unsigned kFull = 0xffffffffu;
 
-inline int tiles_for(long long n) {
-  return n > 0 ? static_cast<int>((n + kTile - 1) / kTile) : 1;
+// A scan tile: each thread takes kScanItems consecutive rows.
+constexpr int kScanItems = 16;
+constexpr int kScanTile = kThreads * kScanItems;   // 4096 rows
+
+// p[i, i + 4) as one int4, zeros past n; a 16-byte load when p + i is
+// aligned (``vec``: p is 16-byte aligned, i is a multiple of 4) and whole.
+__device__ __forceinline__ int4 load4(const int* __restrict__ p, long long i,
+                                      long long n, bool vec) {
+  if (vec && i + 3 < n) return __ldg(reinterpret_cast<const int4*>(p + i));
+  int4 r;
+  r.x = i < n ? __ldg(p + i) : 0;
+  r.y = i + 1 < n ? __ldg(p + i + 1) : 0;
+  r.z = i + 2 < n ? __ldg(p + i + 2) : 0;
+  r.w = i + 3 < n ? __ldg(p + i + 3) : 0;
+  return r;
 }
 
-// For one step of a tile: how many rows of this block before the calling
-// thread have ``flag`` set (stable order: warp, then lane), and how many
-// rows of the whole step have it.  ``warp_counts`` is kWarps ints of shared
-// memory; every thread of the block must call this.
-__device__ __forceinline__ int step_prefix(bool flag, int* warp_counts,
-                                           int* step_total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(kFull, flag);
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = warp_counts[w];
-    before += w < warp ? c : 0;
-    total += c;
-  }
-  __syncthreads();   // warp_counts is rewritten by the next step
-  *step_total = total;
-  return before + __popc(ballot & ((1u << lane) - 1u));
+// A tile's status word of the look-back: published with release semantics
+// at GPU scope, read with acquire, so a reader that sees it also sees every
+// write the publisher made before it (a separate payload word included).
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-// Exclusive scan of counts[0, nb) in place, by one block of kScanThreads
-// threads walking the array in chunks; the grand total goes to *total.
-static __global__ void exclusive_scan_kernel(int* __restrict__ counts, int nb,
-                                             int* __restrict__ total) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int carry;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < nb; base += kScanThreads) {
-    const int i = base + tid;
-    const int v = i < nb ? counts[i] : 0;
-    int x = v;                                   // inclusive scan in the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {                             // scan the 32 warp sums
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int before = carry + (warp ? warp_sums[warp - 1] : 0) + x - v;
-    if (i < nb) counts[i] = before;
-    __syncthreads();                             // everyone has read carry
-    if (tid == kScanThreads - 1) carry = before + v;
-    __syncthreads();
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A status word that carries all its tile publishes: no other write of the
+// publisher needs ordering, so relaxed (single-copy atomic) will do.
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A payload word written before a status word, read after it.
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Zero p[lo, hi), the grid's blocks striding over it, 16 bytes a store
+// where p + i is 16-byte aligned.
+__device__ __forceinline__ void zero_fill(int* __restrict__ p, long long lo,
+                                          long long hi, long long first,
+                                          long long stride) {
+  long long head = lo;
+  while (head < hi && (reinterpret_cast<uintptr_t>(p + head) & 15)) ++head;
+  for (long long i = lo + first; i < head; i += stride) p[i] = 0;
+  const long long quads = (hi - head) / 4;
+  int4* q = reinterpret_cast<int4*>(p + head);
+  for (long long i = first; i < quads; i += stride)
+    q[i] = make_int4(0, 0, 0, 0);
+  for (long long i = head + 4 * quads + first; i < hi; i += stride) p[i] = 0;
+}
+
+// Blocks of ``kernel`` (kThreads threads, no dynamic shared memory) that fit
+// on the current device at once, computed once per device.  A look-back
+// grid takes at most this many blocks, each looping over tiles.  0 on a
+// runtime error.
+inline int resident_blocks(const void* kernel, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0) !=
+            cudaSuccess)
+      return 0;
+    cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  if (tid == 0) *total = carry;
+  return cache[dev];
 }
 
 }  // namespace repro

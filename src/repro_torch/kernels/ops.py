@@ -57,9 +57,9 @@ from .flash_attention import flash_attention
 from .hash_probe import hash_probe
 from .moe_dispatch import moe_dispatch
 from .rg_lru import rg_lru
-from .segment_reduce import segment_reduce
+from .segment_reduce import segment_reduce_flat
 from .ssm_scan import ssm_scan
-from .stream_compact import stream_compact
+from .stream_compact import stream_compact_flat
 
 _INT32_MIN = -(1 << 31)
 _I64 = np.int64
@@ -184,11 +184,10 @@ def vm_compact(keep, kinds, payload, device="cpu"
     cols[:, 0] = kinds
     if d:
         cols[:, 1:] = payload
-    out, cnt = stream_compact(_dev(keep, device),
-                              torch.from_numpy(cols).to(device))
-    # one device->host copy: the count, then the zero-padded rows
-    flat = _host(torch.cat([cnt.view(1), out.view(-1)]))
-    out = flat[1:].reshape(n, d + 1)[:int(flat[0])]
+    # one device->host copy: the zero-padded rows, then the count
+    flat = _host(stream_compact_flat(_dev(keep, device),
+                                     torch.from_numpy(cols).to(device)))
+    out = flat[:-1].reshape(n, d + 1)[:int(flat[-1])]
     return out[:, 0], (out[:, 1:] if payload is not None else None)
 
 
@@ -200,14 +199,15 @@ def vm_segment_reduce(kinds, vals, op: str, init: int, acc: int,
                       ) -> tuple[np.ndarray, np.ndarray, int, bool]:
     """Windowed segmented reduction (executor entry point): every op, any
     carry, values or none — all on ``device``, nothing on host numpy."""
-    ok, ov, cnt, carry = segment_reduce(
+    # one device->host copy: the zero-padded kinds and values, the count,
+    # the carry
+    flat = _host(segment_reduce_flat(
         _dev(kinds, device), None if vals is None else _dev(vals, device),
-        init=init, op=op, acc=acc, group_open=group_open)
-    # one device->host copy: count, carry, then the zero-padded slots
-    flat = _host(torch.cat([cnt.view(1), carry, ok, ov]))
-    m, n2 = int(flat[0]), ok.shape[0]
-    return (flat[3:3 + m], flat[3 + n2:3 + n2 + m], int(flat[1]),
-            bool(flat[2]))
+        init=init, op=op, acc=acc, group_open=group_open))
+    n2 = 2 * len(kinds)
+    m = int(flat[2 * n2])
+    return (flat[:m], flat[n2:n2 + m], int(flat[2 * n2 + 1]),
+            bool(flat[2 * n2 + 2]))
 
 
 # ---- merge / zip run selection ----

@@ -12,9 +12,15 @@ segment_reduce_window_np``'s, bit for bit, for every reduce op of the IR
 
 On a CUDA tensor :func:`segment_reduce` launches ``csrc/segment_reduce.cu``
 (which replaces the TPU kernel ``repro/kernels/segment_reduce.py::
-_segred_kernel``) and packs its two slots per barrier with the
-``stream_compact`` kernel; on a CPU tensor it runs
-:func:`segment_reduce_plain`.  There is no fallback from one to the other.
+_segred_kernel``); on a CPU tensor it runs :func:`segment_reduce_plain`.
+There is no fallback from one to the other.
+
+The kernel is one launch, with the compaction of the emitted tokens fused
+in: a window of at most :data:`TILE_ROWS` tokens (every window of the apps)
+is one block; a longer one walks tiles of that many tokens, each taking its
+predecessors' state (the carry so far and the tokens emitted so far) by a
+decoupled look-back, after one memset of the tiles' status words.  Its
+output is one int32 buffer (:func:`segment_reduce_flat`).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import functools
 import torch
 
 from . import _build
-from .stream_compact import stream_compact, stream_compact_plain
+from .stream_compact import stream_compact_plain
 
 NOTHING = -1                      # "no token" slot marker
 OPS = ("add", "min", "max", "and", "or", "xor")   # kernel op codes 0..5
@@ -113,19 +119,65 @@ def segment_reduce_plain(kinds: torch.Tensor, vals: torch.Tensor | None,
     return out[:, 0], out[:, 1], count, carry
 
 
+#: tokens per tile of the kernel (``kTile`` in ``csrc/segment_reduce.cu``,
+#: checked when the library loads): a window of at most this many tokens is
+#: one block with no scratch; a longer one takes tiles by a decoupled
+#: look-back
+TILE_ROWS = 4096
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("segment_reduce")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.segment_reduce_launch.argtypes = (
-        [p, p, ctypes.c_longlong, i, i, i, i] + [p] * 10)
+        [p, p, ctypes.c_longlong, i, i, i, i, p, p, p])
     lib.segment_reduce_launch.restype = ctypes.c_int
     lib.segment_reduce_tile_rows.restype = ctypes.c_int
+    _build.check_tile_rows(lib.segment_reduce_tile_rows(), TILE_ROWS,
+                           "segment_reduce")
     return lib
 
 
 def _i32(x: int) -> int:
     return ((int(x) - _I32_MIN) & 0xFFFFFFFF) + _I32_MIN
+
+
+def segment_reduce_flat(kinds: torch.Tensor, vals: torch.Tensor | None,
+                        init: int = 0, op: str = "add",
+                        acc: int | None = None, group_open: bool = False
+                        ) -> torch.Tensor:
+    """The result of :func:`segment_reduce` as one int32 tensor [4N + 3]:
+    ``out_kinds`` [2N], ``out_vals`` [2N], ``count``, ``carry`` [2].
+
+    One buffer, so a caller brings the whole result to the host in one copy.
+    A CUDA tensor launches the kernel (raising if it cannot), a CPU tensor
+    runs :func:`segment_reduce_plain`."""
+    _check(kinds, vals, op)
+    if kinds.device.type == "cpu":
+        ok, ov, count, carry = segment_reduce_plain(kinds, vals, init, op,
+                                                    acc, group_open)
+        return torch.cat([ok, ov, count.view(1), carry])
+    if kinds.device.type != "cuda":
+        raise ValueError(f"segment_reduce: unsupported device {kinds.device}")
+    lib = _lib()
+    acc = init if acc is None else acc
+    dev, n = kinds.device, kinds.shape[0]
+    flat = torch.empty(4 * n + 3, dtype=torch.int32, device=dev)
+    # per tile: a status word and two values; then the tile counter.  The
+    # launch zeroes them itself
+    scratch = (None if n <= TILE_ROWS else
+               torch.empty(2 * -(-n // TILE_ROWS) + 1, dtype=torch.int64,
+                           device=dev))
+    with torch.cuda.device(dev):
+        err = lib.segment_reduce_launch(
+            kinds.data_ptr(), None if vals is None else vals.data_ptr(), n,
+            OPS.index(op), _i32(init), _i32(acc), int(bool(group_open)),
+            flat.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    segment_reduce.launches += 1
+    _build.check(lib, "segment_reduce", err)
+    return flat
 
 
 def segment_reduce(kinds: torch.Tensor, vals: torch.Tensor | None,
@@ -136,38 +188,12 @@ def segment_reduce(kinds: torch.Tensor, vals: torch.Tensor | None,
 
     The first ``count`` entries of ``out_kinds``/``out_vals`` are the emitted
     tokens, the rest zeros; ``count`` is a 0-d int32 tensor and ``carry`` an
-    int32 tensor ``[acc, group_open]`` after the window, both on the input's
-    device.  ``acc`` defaults to ``init``.  A CUDA tensor launches the kernel
-    (raising if it cannot), a CPU tensor runs :func:`segment_reduce_plain`.
-    """
-    _check(kinds, vals, op)
-    if kinds.device.type == "cpu":
-        return segment_reduce_plain(kinds, vals, init, op, acc, group_open)
-    if kinds.device.type != "cuda":
-        raise ValueError(f"segment_reduce: unsupported device {kinds.device}")
-    lib = _lib()
-    acc = init if acc is None else acc
-    dev, n = kinds.device, kinds.shape[0]
-    tiles = max(1, -(-n // lib.segment_reduce_tile_rows()))
-    scratch = torch.empty(tiles + 3 * (n + 1) + 2, dtype=torch.int32,
-                          device=dev)
-    tile_bars, seg_val, seg_has, bar_kind, nbar, first_emit = torch.split(
-        scratch, [tiles, n + 1, n + 1, n + 1, 1, 1])
-    slot_keep = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    slot_rows = torch.empty((2 * n, 2), dtype=torch.int32, device=dev)
-    carry = torch.empty(2, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.segment_reduce_launch(
-            kinds.data_ptr(), 0 if vals is None else vals.data_ptr(), n,
-            OPS.index(op), _i32(init), _i32(acc), int(bool(group_open)),
-            tile_bars.data_ptr(), seg_val.data_ptr(), seg_has.data_ptr(),
-            bar_kind.data_ptr(), nbar.data_ptr(), first_emit.data_ptr(),
-            slot_keep.data_ptr(), slot_rows.data_ptr(), carry.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    segment_reduce.launches += 1
-    _build.check(lib, "segment_reduce", err)
-    out, count = stream_compact(slot_keep, slot_rows)
-    return out[:, 0], out[:, 1], count, carry
+    int32 tensor ``[acc, group_open]`` after the window, all views of
+    :func:`segment_reduce_flat`'s buffer on the input's device.  ``acc``
+    defaults to ``init``."""
+    flat = segment_reduce_flat(kinds, vals, init, op, acc, group_open)
+    n2 = 2 * kinds.shape[0]
+    return flat[:n2], flat[n2:2 * n2], flat[2 * n2], flat[2 * n2 + 1:]
 
 
 #: kernel launches so far (CUDA calls only; the plain path does not count)

@@ -8,6 +8,12 @@ launches ``csrc/stream_compact.cu`` (which replaces the TPU kernel
 ``repro/kernels/stream_compact.py::_compact_kernel``); on a CPU tensor it
 runs :func:`stream_compact_plain`, the same function in plain torch.  There
 is no fallback from one to the other.
+
+The kernel is one launch: a window of at most :data:`TILE_ROWS` rows (every
+window of the apps) is one block; a longer one walks tiles of that many
+rows, each taking its output offset from its predecessors by a decoupled
+look-back, after one memset of the tiles' status words.  Its output is one
+int32 buffer (:func:`stream_compact_flat`): the rows, then the count.
 """
 from __future__ import annotations
 
@@ -48,15 +54,56 @@ def stream_compact_plain(mask: torch.Tensor, vals: torch.Tensor
                              device=vals.device)
 
 
+#: rows per tile of the kernel (``kTile`` in ``csrc/stream_compact.cu``,
+#: checked when the library loads): a window of at most this many rows is
+#: one block with no scratch; a longer one takes tiles by a decoupled
+#: look-back
+TILE_ROWS = 4096
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("stream_compact")
+    p = ctypes.c_void_p
     lib.stream_compact_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_void_p])
+        [p] * 3 + [ctypes.c_longlong, ctypes.c_int, p, p])
     lib.stream_compact_launch.restype = ctypes.c_int
     lib.stream_compact_tile_rows.restype = ctypes.c_int
+    _build.check_tile_rows(lib.stream_compact_tile_rows(), TILE_ROWS,
+                           "stream_compact")
     return lib
+
+
+def stream_compact_flat(mask: torch.Tensor, vals: torch.Tensor
+                        ) -> torch.Tensor:
+    """mask [N] int32, vals [N, D] int32 -> one int32 tensor [N*D + 1]: the
+    rows of ``vals`` whose mask is nonzero, in input order, then zeros, as
+    N*D values row-major, then their count.
+
+    One buffer, so a caller brings the whole result to the host in one copy.
+    A CUDA tensor launches the kernel (raising if it cannot), a CPU tensor
+    runs :func:`stream_compact_plain`."""
+    _check(mask, vals)
+    if vals.device.type == "cpu":
+        out, count = stream_compact_plain(mask, vals)
+        return torch.cat([out.view(-1), count.view(1)])
+    if vals.device.type != "cuda":
+        raise ValueError(f"stream_compact: unsupported device {vals.device}")
+    lib = _lib()
+    n, d = vals.shape
+    flat = torch.empty(n * d + 1, dtype=torch.int32, device=vals.device)
+    # tile status words and the tile counter; zeroed by the launch itself
+    scratch = (None if n <= TILE_ROWS else
+               torch.empty(-(-n // TILE_ROWS) + 1, dtype=torch.int64,
+                           device=vals.device))
+    with torch.cuda.device(vals.device):
+        err = lib.stream_compact_launch(
+            mask.data_ptr(), vals.data_ptr(), flat.data_ptr(), n, d,
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    stream_compact.launches += 1
+    _build.check(lib, "stream_compact", err)
+    return flat
 
 
 def stream_compact(mask: torch.Tensor, vals: torch.Tensor
@@ -65,28 +112,10 @@ def stream_compact(mask: torch.Tensor, vals: torch.Tensor
 
     ``compacted`` holds the rows of ``vals`` whose mask is nonzero, in input
     order, then zeros; ``count`` is a 0-d int32 tensor on the same device.
-    A CUDA tensor launches the kernel (raising if it cannot), a CPU tensor
-    runs :func:`stream_compact_plain`."""
-    _check(mask, vals)
-    if vals.device.type == "cpu":
-        return stream_compact_plain(mask, vals)
-    if vals.device.type != "cuda":
-        raise ValueError(f"stream_compact: unsupported device {vals.device}")
-    lib = _lib()
+    Both are views of :func:`stream_compact_flat`'s buffer."""
+    flat = stream_compact_flat(mask, vals)
     n, d = vals.shape
-    tile = lib.stream_compact_tile_rows()
-    out = torch.empty_like(vals)
-    count = torch.empty((), dtype=torch.int32, device=vals.device)
-    scratch = torch.empty(max(1, -(-n // tile)), dtype=torch.int32,
-                          device=vals.device)
-    with torch.cuda.device(vals.device):
-        err = lib.stream_compact_launch(
-            mask.data_ptr(), vals.data_ptr(), out.data_ptr(),
-            count.data_ptr(), scratch.data_ptr(), n, d,
-            torch.cuda.current_stream().cuda_stream)
-    stream_compact.launches += 1
-    _build.check(lib, "stream_compact", err)
-    return out, count
+    return flat[:n * d].view(n, d), flat[n * d]
 
 
 #: kernel launches so far (CUDA calls only; the plain path does not count)

@@ -70,6 +70,146 @@ def test_cuda_segment_reduce_matches_plain(cuda_device, op):
                 assert torch.equal(got[1][:m], want[1][:m])
 
 
+# windows around the kernels' tile (TILE_ROWS tokens): one short, one tile,
+# one past, three and a bit
+TILE = tsr.TILE_ROWS
+EDGE_NS = (TILE - 1, TILE, TILE + 1, 3 * TILE + 5)
+
+
+def _edge_kinds(rng, n):
+    """Barrier patterns that cross tile edges: random, barriers either side
+    of each edge, one open segment over every tile, barriers only, Omega-2
+    opening each tile after a closed group, and Omega-2 opening tile 1
+    after a tile 0 that emits nothing (a closed carry with acc != init
+    reaches it)."""
+    random = rng.choice([0, 0, 0, 1, 2, 3], size=n).astype(np.int64)
+    edges = np.zeros(n, np.int64)
+    for e in range(TILE, n + 1, TILE):
+        edges[e - 1] = rng.integers(1, 4)
+        if e < n:
+            edges[e] = rng.integers(1, 4)
+    spanning = np.zeros(n, np.int64)
+    spanning[-1] = 2
+    omega2 = rng.choice([0, 0, 0, 1, 2], size=n).astype(np.int64)
+    for e in range(TILE, n, TILE):
+        omega2[e - 1], omega2[e] = 1, 2
+    quiet = rng.choice([0, 0, 0, 1, 2, 3], size=n).astype(np.int64)
+    quiet[:TILE] = rng.integers(2, 4, size=min(TILE, n))
+    if n > TILE:
+        quiet[TILE] = 2
+    return (random, edges, spanning,
+            rng.integers(1, 4, size=n).astype(np.int64), omega2, quiet)
+
+
+def _same_segred(got, want):
+    assert int(got[2]) == int(want[2])
+    assert torch.equal(got[3], want[3])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_cuda_scan_kernels_at_tile_edges(cuda_device, n):
+    """Both kernels bit for bit their plain versions, zeros past the count
+    included, on windows that cross the tile edges: every op, values and
+    none, open / closed / degenerate carries; masks keeping nothing,
+    everything, the edge rows, random rows."""
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.integers(I32_MIN, I32_MAX, n)
+                            .astype(np.int32)).to(cuda_device)
+    for kinds_np in _edge_kinds(rng, n):
+        k = torch.from_numpy(kinds_np.astype(np.int32)).to(cuda_device)
+        for op in REDUCE_OPS:
+            for go, acc in ((True, 5), (False, 1), (False, -9)):
+                for vv in (vals, None):
+                    _same_segred(tsr.segment_reduce(k, vv, 1, op, acc, go),
+                                 tsr.segment_reduce_plain(k, vv, 1, op, acc,
+                                                          go))
+    edge = np.zeros(n, np.int32)
+    edge[[e for t in range(TILE, n + 1, TILE) for e in (t - 1, t)
+          if e < n]] = 1
+    for mask_np in (np.zeros(n, np.int32), np.ones(n, np.int32), edge,
+                    (rng.random(n) < 0.5).astype(np.int32)):
+        mask = torch.from_numpy(mask_np).to(cuda_device)
+        for d in (1, 4, 40):
+            rows = torch.from_numpy(rng.integers(I32_MIN, I32_MAX, (n, d))
+                                    .astype(np.int32)).to(cuda_device)
+            out, cnt = tsc.stream_compact(mask, rows)
+            want, wcnt = tsc.stream_compact_plain(mask, rows)
+            assert int(cnt) == int(wcnt) and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (128, 3 * TILE + 5))
+def test_cuda_scan_kernels_replay_from_a_graph(cuda_device, n):
+    """One call of each kernel captured in a CUDA graph, replayed on two
+    different inputs copied into its static tensors: both replays equal the
+    plain version, so no look-back state outlives a replay."""
+    rng = np.random.default_rng(n + 1)
+
+    def window():
+        kinds = rng.choice([0, 0, 0, 1, 2, 3], size=n).astype(np.int32)
+        return (torch.from_numpy(kinds).to(cuda_device),
+                torch.from_numpy(rng.integers(I32_MIN, I32_MAX, n)
+                                 .astype(np.int32)).to(cuda_device),
+                torch.from_numpy(rng.integers(I32_MIN, I32_MAX, (n, 3))
+                                 .astype(np.int32)).to(cuda_device))
+
+    kinds, vals, rows = window()
+    mask = (kinds == 0).int()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm, off the capture
+        tsr.segment_reduce(kinds, vals, 0, "xor", 3, True)
+        tsc.stream_compact(mask, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_r = tsr.segment_reduce(kinds, vals, 0, "xor", 3, True)
+        got_c = tsc.stream_compact(mask, rows)
+    for _ in range(2):
+        new_kinds, new_vals, new_rows = window()
+        kinds.copy_(new_kinds)
+        vals.copy_(new_vals)
+        rows.copy_(new_rows)
+        mask.copy_((new_kinds == 0).int())
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_segred(got_r, tsr.segment_reduce_plain(kinds, vals, 0, "xor",
+                                                     3, True))
+        want, wcnt = tsc.stream_compact_plain(mask, rows)
+        assert int(got_c[1]) == int(wcnt) and torch.equal(got_c[0], want)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kernels_are_one_kernel_per_window(cuda_device):
+    """At n <= TILE_ROWS each call is exactly one CUDA kernel and no memset
+    (torch.profiler); above it, one kernel and one memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    for n, memsets in ((128, 0), (TILE, 0), (TILE + 1, 1)):
+        kinds = torch.from_numpy(rng.choice([0, 0, 1, 2], size=n)
+                                 .astype(np.int32)).to(cuda_device)
+        rows = torch.from_numpy(rng.integers(0, 9, (n, 4))
+                                .astype(np.int32)).to(cuda_device)
+        mask = (kinds == 0).int()
+        for call in (lambda: tsr.segment_reduce(kinds, kinds, 0, "add"),
+                     lambda: tsc.stream_compact(mask, rows)):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+            dev = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            sets = [x for x in dev if "memset" in x.lower()]
+            assert len(dev) - len(sets) == 3, dev
+            assert len(sets) == 3 * memsets, dev
+
+
 @pytest.mark.cuda
 def test_cuda_torch_backend_runs_an_app_on_the_card(cuda_device):
     """One app end to end on ``TorchBackend()`` (CUDA by default) against
