@@ -12,7 +12,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              registers and spills of every attention and scan kernel
              (``-Xptxas -v``), and ``cuobjdump -sass``: each bf16 flash
              instance must issue tensor-core instructions (HMMA), no float32
-             one may.
+             one may; no instance of the two scan kernels may spill or keep
+             a stack frame, and one call of each at its path shape must
+             put one kernel on the card (torch.profiler, taken here, before
+             the other phases).
 2. kernels — each kernel against its plain torch version on the card, exact
              equality of outputs (zeros past the count included), count and
              carry: windows of 1, 127, 128, 129 and 512 lanes, D in 1..5,
@@ -50,9 +53,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 7. ssm_kernel — the ssm_scan kernel against its plain version (2e-5 of the
              largest |plain| value, on y and hT) over S in {1, 63, 64, 100,
              512}, Di in {128, 1000, 8192}, N in {8, 16}, zero and random
-             h0, then at the path shape and a large one, with times (eager
-             and from a CUDA graph) beside the bound (no PyTorch call
-             computes a selective scan).
+             h0; at the edges of each N's plan (S one short of and one past
+             its buffer of L steps, a stage of CHUNK steps and two, a
+             ragged block of channels, Di 8192); then at the path shape and
+             a large one, with times (eager and from a CUDA graph, each
+             replay held to the plain version) beside the bound (no PyTorch
+             call computes a selective scan), the kernels of one call
+             (torch.profiler, before the other phases: exactly one); one
+             captured call replayed on two new inputs.
 8. ssm_lm  — full-width, full-depth falcon-mamba-7b (random weights drawn
              on the card) served by ``DecodeEngine`` on the same 8
              requests; then ``ssm.forward(impl="kernel")`` over each
@@ -65,10 +73,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 9. rglru_kernel — the rg_lru scan kernel against its plain version (2e-5 of
              the largest |plain| value, on y and hT) over S in {1, 63, 64,
              100, 512, 4096}, D in {1, 100, 4096}, B in {1, 4}, zero and
-             random h0, then at the path shape and a large one, with times
-             beside the bound; flash and decode attention at head dim 256
-             against their plain versions, with 16 kv heads and with
-             recurrentgemma-9b's own one kv head for 16 query heads.
+             random h0; bit for bit at the edges of its ring (S around a
+             stage, the prologue's stages - 1 tiles and the whole ring, as
+             each (B, D)'s plan sets them; D at each block width's edge,
+             and no multiple of 4); then at the path shape and a large
+             one, with times beside the bound (each graph replay bit for
+             bit), one kernel a call (torch.profiler), one captured call
+             replayed on two new inputs; flash and decode attention at
+             head dim 256 against their plain versions, with 16 kv heads
+             and with recurrentgemma-9b's own one kv head for 16 query
+             heads.
 10. hybrid_lm — full-width, full-depth recurrentgemma-9b (random weights
              drawn on the card) served by ``DecodeEngine(max_len=4352)`` on
              the 8 requests and one 4096-token prompt, whose prefill takes
@@ -1310,6 +1324,27 @@ def _scan_case(name, kernel, plain, ins, what) -> tuple[float, float]:
     return worst
 
 
+def scan_kernels_per_call(dev) -> dict:
+    """The kernels and memsets one call of each scan kernel puts on the card
+    at its path shape (torch.profiler), which must be one kernel and none.
+    Taken before the other phases: later in a run, on the card's torch
+    2.11, the profiler's windows of a few calls saw no device event of
+    these kernels, while the same count in a fresh process saw each."""
+    import torch
+    from repro_torch.kernels import rg_lru as rg
+    from repro_torch.kernels import ssm_scan as sc
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    ssm_ins = _ssm_inputs(gen, *SSM_PATH, True, dev)
+    rg_ins = _rg_inputs(gen, *RG_PATH, True, dev)
+    out = {"ssm_scan": launches_per_call(lambda: sc.ssm_scan(*ssm_ins)),
+           "rg_lru": launches_per_call(lambda: rg.rg_lru(*rg_ins))}
+    for name, per in out.items():
+        require(per == {"kernels": 1, "memsets": 0},
+                f"{name} at its path shape puts {per} on the card, not one "
+                "kernel")
+    return out
+
+
 def _ssm_case(sc, ins, what) -> tuple[float, float]:
     return _scan_case("ssm_scan", sc.ssm_scan, sc.ssm_scan_plain, ins, what)
 
@@ -1327,7 +1362,41 @@ def _ssm_bound(bsz, s, di, n, clock_hz) -> dict:
             "bytes_ms": mem_ms, "exp_ms": exp_ms, "sm_clock_hz": clock_hz}
 
 
-def phase_ssm_kernel(dev):
+def _scan_close(name, got, want, what) -> None:
+    """``got`` within SSM_TOL of the largest |want| on y and hT."""
+    for out, g, w in zip(("y", "hT"), got, want):
+        err = float((g - w).abs().max())
+        require(err <= SSM_TOL * float(w.abs().max()),
+                f"{name} {what}: {out} differs from plain by {err}")
+
+
+def _scan_replayed(name, kernel, plain, ins, exact, gen_inputs) -> None:
+    """One call of ``kernel`` captured in a CUDA graph and replayed on two
+    new inputs copied into its static tensors: each replay equals the plain
+    version on those inputs (bit for bit if ``exact``, else SSM_TOL)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*ins)                               # warm, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kernel(*ins)
+    for i in range(2):
+        for t, new in zip(ins, gen_inputs()):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain(*ins)
+        if exact:
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{name} replay {i} differs from plain")
+        else:
+            _scan_close(name, got, want, f"replay {i}")
+
+
+def phase_ssm_kernel(dev, per_call):
     import torch
     from repro_torch.kernels import ssm_scan as sc
     gen = torch.Generator(dev).manual_seed(SEED + 3)
@@ -1341,6 +1410,20 @@ def phase_ssm_kernel(dev):
                                      f"h0={'zero' if zero_h0 else 'random'}")
                     worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
                     cases += 1
+    # the edges of each N's plan: a buffer of L steps, a stage of CHUNK
+    # steps, a block of C channels (a ragged one, and the path's Di)
+    edge_cases = 0
+    for n in (1, 5, 16, 32):
+        p = sc.plan(1, 8192, n)
+        for s in (p.lanes - 1, p.lanes + 1, sc.CHUNK - 1, sc.CHUNK + 1,
+                  2 * sc.CHUNK + 1):
+            for bsz, di in ((2, p.channels + 3), (1, 8192)):
+                ins = _ssm_inputs(gen, bsz, s, di, n, s % 2 == 0, dev)
+                e, r = _ssm_case(sc, ins, f"edge B={bsz} S={s} Di={di} "
+                                 f"N={n} ({p.lanes} lanes x {p.states})")
+                worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
+                edge_cases += 1
+    cases += edge_cases
     clock = _sm_clock_hz()
     rows = {}
     # the path shape with the model's zero h0; the large one with a random h0
@@ -1351,22 +1434,35 @@ def phase_ssm_kernel(dev):
         e, r = _ssm_case(sc, ins, f"{label} {shape}")
         worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
         cases += 1
+        want = sc.ssm_scan_plain(*ins)
+        p = sc.plan(shape[0], shape[2], shape[3])
         rec = {"b": shape[0], "s": shape[1], "di": shape[2], "n": shape[3],
+               "lanes": p.lanes, "states": p.states, "blocks": p.blocks,
+               "smem_bytes": p.smem_bytes,
                "max_abs_err": e, "max_err_over_scale": r,
                "kernel_ms": time_ms(lambda: sc.ssm_scan(*ins), iters),
-               "kernel_graph_ms": graph_ms(lambda: sc.ssm_scan(*ins), iters),
+               "kernel_graph_ms": graph_ms(
+                   lambda: sc.ssm_scan(*ins), iters,
+                   check=lambda got: _scan_close("ssm_scan", got, want,
+                                                 f"{label} replayed")),
                "plain_ms": time_ms(lambda: sc.ssm_scan_plain(*ins),
                                    plain_iters, warmup=1),
                "library_ms": None,
                "library_note": "none: no single PyTorch call computes a "
                                "selective scan",
                **_ssm_bound(*shape, clock)}
+        if label == "path":
+            rec["kernels_per_call"] = per_call
         rows[label] = rec
         emit({"phase": "ssm_kernel", "kernel": "ssm_scan", "shape": label,
               **rec})
+    _scan_replayed("ssm_scan", sc.ssm_scan, sc.ssm_scan_plain,
+                   _ssm_inputs(gen, 2, 129, 1000, 16, False, dev), False,
+                   lambda: _ssm_inputs(gen, 2, 129, 1000, 16, False, dev))
     torch.cuda.synchronize()
     emit({"phase": "ssm_kernel", "check": f"vs plain, {SSM_TOL} of the "
-          "largest |plain|", "cases": cases, "max_abs_err": worst_abs,
+          "largest |plain|", "cases": cases, "edge_cases": edge_cases,
+          "replays": 2, "max_abs_err": worst_abs,
           "max_err_over_scale": worst_rel})
     return {"ssm_scan": {**rows, "max_abs_err": worst_abs}}
 
@@ -1613,7 +1709,7 @@ def _rg_case(rg, ins, what) -> tuple[float, float]:
     return _scan_case("rg_lru", rg.rg_lru, rg.rg_lru_plain, ins, what)
 
 
-def phase_rglru_kernel(dev):
+def phase_rglru_kernel(dev, per_call):
     import numpy as np
     import torch
     from repro_torch.kernels import rg_lru as rg
@@ -1628,6 +1724,24 @@ def phase_rglru_kernel(dev):
                                     f"{'zero' if zero_h0 else 'random'}")
                     worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, r)
                     cases += 1
+    # the ring's edges, bit for bit, for the plan of each (B, D): a stage
+    # of its steps, the prologue's stages - 1 tiles, one past the whole
+    # ring; each width's block edge, a D that is no multiple of 4 (4-byte
+    # copies), the path's D
+    edge_cases = 0
+    for d in (7, 8, 9, 15, 17, 31, 33, 4095, 4096):
+        for bsz in (1, 4):
+            p = rg.plan(bsz, d)
+            ring = (p.stages - 1) * p.steps
+            for s in (p.steps - 1, p.steps, p.steps + 1, ring, ring + 1,
+                      p.stages * p.steps + 1):
+                ins = _rg_inputs(gen, bsz, s, d, s % 2 == 0, dev)
+                got, want = rg.rg_lru(*ins), rg.rg_lru_plain(*ins)
+                require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                        f"rg_lru edge B={bsz} S={s} D={d} (width "
+                        f"{p.width}) differs from plain")
+                edge_cases += 1
+    cases += edge_cases
     rows = {}
     # the path shape with the model's zero h0; the large one with a random h0
     for label, shape, iters, plain_iters, zero_h0 in (
@@ -1640,22 +1754,38 @@ def phase_rglru_kernel(dev):
         bsz, s, d = shape
         bound, by = _bound(2.0 * bsz * s * d, 4 * (3 * bsz * s * d
                                                    + 2 * bsz * d), "float32")
-        rec = {"b": bsz, "s": s, "d": d, "max_abs_err": e,
-               "max_err_over_scale": r,
+        want = rg.rg_lru_plain(*ins)
+        p = rg.plan(bsz, d)
+        rec = {"b": bsz, "s": s, "d": d, "width": p.width,
+               "steps_a_stage": p.steps, "stages": p.stages,
+               "blocks": p.blocks, "smem_bytes": p.smem_bytes,
+               "max_abs_err": e, "max_err_over_scale": r,
                "kernel_ms": time_ms(lambda: rg.rg_lru(*ins), iters),
-               "kernel_graph_ms": graph_ms(lambda: rg.rg_lru(*ins), iters),
+               "kernel_graph_ms": graph_ms(
+                   lambda: rg.rg_lru(*ins), iters,
+                   check=lambda got: require(
+                       all(torch.equal(g, w) for g, w in zip(got, want)),
+                       f"rg_lru {label} replayed differs from plain")),
                "plain_ms": time_ms(lambda: rg.rg_lru_plain(*ins),
                                    plain_iters, warmup=1),
                "library_ms": None,
                "library_note": "none: no single PyTorch call computes a "
                                "gated linear recurrence",
                "bound_ms": bound, "bound_by": by}
+        if label == "path":
+            rec["kernels_per_call"] = per_call
         rows[label] = rec
         emit({"phase": "rglru_kernel", "kernel": "rg_lru", "shape": label,
               **rec})
+    p = rg.plan(3, 4095)
+    replay = (3, p.stages * p.steps + 1, 4095)
+    _scan_replayed("rg_lru", rg.rg_lru, rg.rg_lru_plain,
+                   _rg_inputs(gen, *replay, False, dev), True,
+                   lambda: _rg_inputs(gen, *replay, False, dev))
     torch.cuda.synchronize()
     emit({"phase": "rglru_kernel", "check": f"vs plain, {SSM_TOL} of the "
-          "largest |plain|", "cases": cases, "max_abs_err": worst_abs,
+          "largest |plain|; edges and replays bit for bit", "cases": cases,
+          "edge_cases": edge_cases, "replays": 2, "max_abs_err": worst_abs,
           "max_err_over_scale": worst_rel})
     # attention at recurrentgemma-9b's head dim: 16 query heads over the
     # 512-token prompt, matched (16 kv rows, as the first version was
@@ -2496,8 +2626,9 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def ptxas_by_function(log: str) -> list[dict]:
-    """Registers, spill bytes and static shared memory of every entry
-    function that ``-Xptxas -v`` reported in ``log``."""
+    """Registers, stack frame and spill bytes (an array indexed at run time
+    lands in the stack frame without a spill) and static shared memory of
+    every entry function that ``-Xptxas -v`` reported in ``log``."""
     import re
     rows, cur = [], None
     for ln in log.splitlines():
@@ -2506,10 +2637,11 @@ def ptxas_by_function(log: str) -> list[dict]:
             cur = {"function": m.group(1)}
             rows.append(cur)
         elif cur is not None:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
             if m:
-                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+                (cur["stack_frame"], cur["spill_stores"],
+                 cur["spill_loads"]) = map(int, m.groups())
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 cur["registers"] = int(m.group(1))
@@ -2577,10 +2709,18 @@ KERNEL_ROWS = {
                   "cp.async; GQA by index"},
     "ssm_scan": {
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
-        "replaces": "src/repro/kernels/ssm_scan.py:23"},
+        "replaces": "src/repro/kernels/ssm_scan.py:23",
+        "design": "8 lanes x K states a channel (K 2 at N 16), "
+                  "partial sums over n buffered 8 steps and reduce-"
+                  "scattered once, exp as one ex2, a 2-stage cp.async "
+                  "ring (b and c transposed), y out in 16-byte stores"},
     "rg_lru": {
         "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
-        "replaces": "src/repro/kernels/rg_lru.py:20"},
+        "replaces": "src/repro/kernels/rg_lru.py:20",
+        "design": "one thread a channel, rounded multiply then add (bit "
+                  "for bit the plain loop), one warp of 4-32 channels a "
+                  "block, fed by a cp.async ring (6 stages of 64 steps, "
+                  "10 of 32 at 32 channels); y out in whole tiles"},
 }
 
 
@@ -2606,11 +2746,18 @@ def main() -> int:
              for ln in log.splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": ptxas})
-    emit({"phase": "build", "ptxas_by_function": {
+    by_function = {
         name: ptxas_by_function(_build.build_log.get(name, ""))
         for name in ("flash_attention", "decode_attention", "stream_compact",
-                     "segment_reduce")},
-        "flash_sass_mma": flash_sass_mma(_build)})
+                     "segment_reduce", "ssm_scan", "rg_lru")}
+    emit({"phase": "build", "ptxas_by_function": by_function,
+          "flash_sass_mma": flash_sass_mma(_build)})
+    for name in ("ssm_scan", "rg_lru"):      # their state and tiles in
+        for row in by_function[name]:        # registers, every instance
+            require(row.get("spill_stores") == 0 and
+                    row.get("stack_frame") == 0,
+                    f"{row['function']} spills or keeps a stack frame: "
+                    f"{row}")
 
     # float32 products in full float32 (the tolerances assume it)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2624,6 +2771,8 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t
         return out
 
+    per_call = scan_kernels_per_call(dev)
+    emit({"phase": "build", "kernels_per_call": per_call})
     timings = timed("kernels", phase_kernels, dev)
     tb = counting_backend()
     launches = timed("apps", phase_apps, tb)
@@ -2633,9 +2782,10 @@ def main() -> int:
         attn[name]["d128"] = rec
     timings.update(attn)
     lm = timed("lm", phase_lm)
-    timings.update(timed("ssm_kernel", phase_ssm_kernel, dev))
+    timings.update(timed("ssm_kernel", phase_ssm_kernel, dev,
+                         per_call["ssm_scan"]))
     ssm_lm = timed("ssm_lm", phase_ssm_lm, dev)
-    rg = timed("rglru_kernel", phase_rglru_kernel, dev)
+    rg = timed("rglru_kernel", phase_rglru_kernel, dev, per_call["rg_lru"])
     timings["rg_lru"] = rg["rg_lru"]
     for name, rec in rg["d256"].items():
         timings[name]["d256"] = rec

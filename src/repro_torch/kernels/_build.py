@@ -112,11 +112,12 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_tile_rows(built: int, wrapper: int, what: str) -> None:
-    """Raise if a library's tile size is not the one its wrapper assumes."""
+def check_constant(built: int, wrapper: int, what: str, name: str) -> None:
+    """Raise if a library's constant ``name`` (a tile size, a stage count)
+    is not the one its wrapper assumes."""
     if built != wrapper:
-        raise RuntimeError(f"{what}: the library tiles {built} rows, the "
-                           f"wrapper's TILE_ROWS is {wrapper}")
+        raise RuntimeError(f"{what}: the library's {name} is {built}, the "
+                           f"wrapper's is {wrapper}")
 
 
 def check(lib: ctypes.CDLL, what: str, err: int) -> None:

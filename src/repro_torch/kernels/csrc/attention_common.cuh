@@ -1,12 +1,15 @@
 // Pieces shared by the two attention kernels: 4- and 8-element loads and
 // stores of float32 or bfloat16 rows, widened to float, the masked score of
 // the reference kernels, and the Hopper (sm_80 and later) instructions of
-// their tensor-core paths: cp.async, ldmatrix, mma.sync m16n8k16 and ex2.
+// their tensor-core paths: ldmatrix, mma.sync m16n8k16, the split of P
+// into two bf16 terms, and ex2 (cp.async is common.cuh's).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace repro {
 namespace attn {
@@ -87,26 +90,10 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::smem_u32;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
@@ -138,6 +125,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// P's two rows of an m16n8k16 A fragment, from the f32 accumulators of two
+// m16n8 tiles s0 and s1 (the C layout of an m16n8 pair is the A layout of
+// one k16 step), as two bf16 terms: hi = bf16(p) and lo = bf16(p - hi).
+// hi + lo keeps about 16 bits of p, so P V by two products (hi V + lo V)
+// holds the float32 P that the reference multiplies by V.
+__device__ __forceinline__ void split_p(const float (&s0)[4],
+                                        const float (&s1)[4],
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const float p[8] = {s0[0], s0[1], s0[2], s0[3], s1[0], s1[1], s1[2], s1[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p[2 * i], p[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(p[2 * i] - hf.x, p[2 * i + 1] - hf.y);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
 }
 
 // 2^x on the special-function unit, denormal results flushed to zero

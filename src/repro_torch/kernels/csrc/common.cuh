@@ -1,5 +1,6 @@
 // Shared pieces of the hand-written Hopper kernels: the block size, the
-// error text of an entry point, and the parts of the two tile scans
+// error text of an entry point, asynchronous copies into shared memory
+// (cp.async), and the parts of the two tile scans
 // (stream_compact, segment_reduce): tile geometry, 16-byte loads that stop
 // at the window's end, the status words of a decoupled look-back (relaxed,
 // or release/acquire where a payload word rides beside them), the size of a
@@ -86,6 +87,37 @@ __device__ __forceinline__ void zero_fill(int* __restrict__ p, long long lo,
   for (long long i = first; i < quads; i += stride)
     q[i] = make_int4(0, 0, 0, 0);
   for (long long i = head + 4 * quads + first; i < hi; i += stride) p[i] = 0;
+}
+
+// Asynchronous copies global -> shared (sm_80 and later), each thread's
+// copies committed in groups.  A src_bytes of 0 writes zeros, so the
+// ragged edge of a tile needs no branch; src must still be a valid address.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (dst and src 16-byte aligned), bypassing L1
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes: one element, so that a copy can transpose a tile
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Blocks of ``kernel`` (kThreads threads, no dynamic shared memory) that fit

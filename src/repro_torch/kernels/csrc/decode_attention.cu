@@ -32,7 +32,8 @@
 // flash_attention.cu's tile step: each of 4 warps copies every 4th tile
 // of the chunk's keys into its own shared-memory slot (cp.async) and runs
 // S = Q K^T and O += P V by mma.sync m16n8k16 with an online softmax in
-// log2 units, P rounded to bf16; the warps merge through shared memory.
+// log2 units, P as two bf16 terms (hi V + lo V, as in flash, so P V keeps
+// the reference's float32 P); the warps merge through shared memory.
 //
 // Otherwise (decode_split_kernel, 256 threads; float32, and bfloat16 at
 // G = 1, where an m16 tile would waste 15 rows, or G > 16): it streams the
@@ -88,7 +89,7 @@ using attn::ex2;
 using attn::ldmatrix_x4;
 using attn::ldmatrix_x4_trans;
 using attn::mma_bf16;
-using attn::pack_bf16;
+using attn::split_p;
 using attn::smem_u32;
 
 template <int D, typename T, int kH>
@@ -273,10 +274,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // chunk's keys (64 a tile, 32 at D = 256) into its own slot of shared
 // memory (cp.async, rows past the chunk's keys zero) and runs flash's tile
 // step on it: S = Q K^T and O += P V by mma.sync m16n8k16, an online
-// softmax in log2 units on the accumulator fragments, P rounded to bf16 in
-// registers.  Keys past the chunk's valid ones score -inf (they are no
-// keys: weight 0 even when every real key is masked at -1e30).  The warps'
-// states then merge through shared memory into the chunk's (m, l, acc).
+// softmax in log2 units on the accumulator fragments, P split into two
+// bf16 terms in registers (attn::split_p).  Keys past the chunk's valid
+// ones score -inf (they are no keys: weight 0 even when every real key is
+// masked at -1e30).  The warps' states then merge through shared memory
+// into the chunk's (m, l, acc).
 // -inf: the score of a slot past the chunk's keys, which is no key at all
 __device__ __forceinline__ float no_key() {
   return -__int_as_float(0x7f800000);
@@ -436,18 +438,17 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < C::kKeys / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t hi[4], lo[4];
+      split_p(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, v_addr + (kk * 16 * C::kStride + n2 * 16) *
                                           sizeof(bf16));
-        mma_bf16(o[2 * n2], a, b[0], b[1]);
-        mma_bf16(o[2 * n2 + 1], a, b[2], b[3]);
+        mma_bf16(o[2 * n2], hi, b[0], b[1]);
+        mma_bf16(o[2 * n2], lo, b[0], b[1]);
+        mma_bf16(o[2 * n2 + 1], hi, b[2], b[3]);
+        mma_bf16(o[2 * n2 + 1], lo, b[2], b[3]);
       }
     }
     __syncwarp();                    // the next tile overwrites ks / vs

@@ -39,11 +39,13 @@
 // online softmax runs on the accumulator fragments (each thread holds two
 // rows; a row's max reduces over the 4 lanes of a quad by __shfl_xor_sync,
 // its sum stays per thread until the end) in log2 units (ex2.approx, the
-// scale times log2(e) folded in); P is rounded to bf16 in registers (the
+// scale times log2(e) folded in); P becomes A fragments in registers (the
 // f32 C layout of an m16n8 pair is the A layout of one k16 step, so P never
 // touches shared memory), and O += P V takes V through ldmatrix.trans.
-// Numerics differ from the float32 path in one place, as in every
-// FlashAttention: P is rounded to bf16 before P V (l sums the f32 P).
+// The reference multiplies a float32 P by V, so P is not rounded to one
+// bf16: it splits into hi = bf16(P) and lo = bf16(P - hi), and O takes
+// hi V + lo V, two products on the same V fragments (attn::split_p; about
+// 16 bits of P; l sums the f32 P).  That doubles P V's tensor-core work.
 // Two other shapes were tried on an H100, 8 warps of 16 rows and 4 warps
 // of 32 rows (every K/V fragment feeding two mma, at the cost of registers
 // and so of blocks per SM); neither was faster at the served shapes, so
@@ -223,6 +225,7 @@ using attn::ldmatrix_x4;
 using attn::ldmatrix_x4_trans;
 using attn::mma_bf16;
 using attn::pack_bf16;
+using attn::split_p;
 using attn::smem_u32;
 
 template <int D>
@@ -401,22 +404,22 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
       }
 
-      // O += P V: P's accumulators become A fragments in registers
+      // O += P V: P's accumulators become A fragments in registers, as
+      // two bf16 terms, each multiplied by the same V fragments
       const uint32_t v_addr = smem_u32(vs + bv_row * C::kStride + bv_col);
 #pragma unroll
       for (int kk = 0; kk < C::kKeys / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t hi[4], lo[4];
+        split_p(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
           uint32_t b[4];
           ldmatrix_x4_trans(b, v_addr + (kk * 16 * C::kStride + n2 * 16) *
                                             sizeof(bf16));
-          mma_bf16(o[2 * n2], a, b[0], b[1]);
-          mma_bf16(o[2 * n2 + 1], a, b[2], b[3]);
+          mma_bf16(o[2 * n2], hi, b[0], b[1]);
+          mma_bf16(o[2 * n2], lo, b[0], b[1]);
+          mma_bf16(o[2 * n2 + 1], hi, b[2], b[3]);
+          mma_bf16(o[2 * n2 + 1], lo, b[2], b[3]);
         }
       }
     }

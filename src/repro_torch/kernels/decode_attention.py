@@ -20,8 +20,9 @@ softmax state ``(m, l, acc[D])`` in float32; a second kernel merges the
 chunks of each query row (skipped when ``n_split == 1``).  A call is
 therefore one or two device kernels, counted as one launch.  In bfloat16
 with 2 <= G <= 16 the block runs the G query rows as one m16 tile on the
-tensor cores (P rounded to bf16 before P V, as in flash); otherwise lane
-groups of scalar FMAs keep ``kH`` query rows each.
+tensor cores (P as two bf16 terms, hi V + lo V, as in flash, so that P V
+keeps the reference's float32 P); otherwise lane groups of scalar FMAs
+keep ``kH`` query rows each.
 
 Bound: bytes — each kv row's K and V up to its valid length, plus q and
 the output per query row and the lengths, at 3.35 TB/s on an H100 SXM;

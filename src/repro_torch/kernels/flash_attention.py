@@ -19,7 +19,8 @@ the card's bf16 tensor-core rate (989 TFLOP/s on an H100 SXM), or the
 bytes of q and out (per query row) and k and v (once per kv row) at 3.35
 TB/s where that is larger.  The bfloat16 instance runs both products on
 the tensor cores (``mma.sync`` m16n8k16, a ``cp.async`` ring of K/V
-tiles); the float32 instance stays on the CUDA cores (tensor cores would
+tiles; P as two bf16 terms, so that P V keeps the reference's float32 P);
+the float32 instance stays on the CUDA cores (tensor cores would
 mean TF32).  See the source for both layouts.
 """
 from __future__ import annotations

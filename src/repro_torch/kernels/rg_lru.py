@@ -12,17 +12,58 @@ no fallback from one to the other.  Unlike the reference kernel, any B, S
 and D are taken (the reference asserts whole chunks and whole d blocks).
 
 Bound: bytes, ``(3·B·S·D + 2·B·D)·4`` (a, b, y once each, h0 and hT) at
-3.35 TB/s on an H100 SXM; 2 flops per element.  See the source for the
-layout.
+3.35 TB/s on an H100 SXM; 2 flops per element.  The kernel keeps one
+thread a channel and the rounded multiply-then-add of the plain loop, and
+feeds it from a ring of shared-memory tiles of ``width`` channels filled
+by ``cp.async`` (``STEPS`` and ``STAGES`` by width); :func:`plan` picks
+the width.  See the source for the layout.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import _build
+
+WIDTHS = (32, 16, 8, 4)                # channels a block, one instance each
+#: steps a stage holds, and stages of the ring, by width
+STEPS = {32: 32, 16: 64, 8: 64, 4: 64}
+STAGES = {32: 10, 16: 6, 8: 6, 4: 6}
+SMS = 132                              # streaming multiprocessors (H100 SXM)
+SMEM_LIMIT = 232448                    # bytes of shared memory a block
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: ``width`` channels a block of one warp, ``blocks``
+    blocks, ``smem_bytes`` of dynamic shared memory a block (``stages``
+    tiles of a and b and one y tile, ``steps`` x ``width`` floats each),
+    ``in_flight_bytes`` of a and b that a block keeps loading while it
+    walks a tile."""
+    width: int
+    steps: int
+    stages: int
+    blocks: int
+    smem_bytes: int
+    in_flight_bytes: int
+
+
+def smem_bytes(width: int) -> int:
+    return (STAGES[width] * 2 + 1) * STEPS[width] * width * 4
+
+
+def plan(bsz: int, d: int) -> Plan:
+    """The widest block that still gives the grid 3 blocks an SM, down to
+    ``WIDTHS[-1]`` channels."""
+    width = WIDTHS[0]
+    while width > WIDTHS[-1] and bsz * -(-d // width) < 3 * SMS:
+        width //= 2
+    return Plan(width, STEPS[width], STAGES[width], bsz * -(-d // width),
+                smem_bytes(width),
+                (STAGES[width] - 1) * 2 * STEPS[width] * width * 4)
 
 
 def _check(a, b, h0) -> None:
@@ -58,8 +99,15 @@ def rg_lru_plain(a, b, h0):
 def _lib() -> ctypes.CDLL:
     lib = _build.library("rg_lru")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rg_lru_launch.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.rg_lru_launch.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.rg_lru_launch.restype = ctypes.c_int
+    lib.rg_lru_config.argtypes = [i, i]
+    for width in WIDTHS:
+        for what, want in enumerate((STEPS[width], STAGES[width],
+                                     smem_bytes(width))):
+            _build.check_constant(lib.rg_lru_config(width, what), want,
+                                  f"rg_lru width {width}",
+                                  ("steps", "stages", "smem bytes")[what])
     return lib
 
 
@@ -85,7 +133,7 @@ def rg_lru(a, b, h0):
     with torch.cuda.device(a.device):
         err = lib.rg_lru_launch(
             a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hT.data_ptr(), bsz, s, d,
+            hT.data_ptr(), bsz, s, d, plan(bsz, d).width,
             torch.cuda.current_stream().cuda_stream)
     rg_lru.launches += 1
     _build.check(lib, "rg_lru", err)

@@ -134,8 +134,8 @@ def _lib() -> ctypes.CDLL:
         [p, p, ctypes.c_longlong, i, i, i, i, p, p, p])
     lib.segment_reduce_launch.restype = ctypes.c_int
     lib.segment_reduce_tile_rows.restype = ctypes.c_int
-    _build.check_tile_rows(lib.segment_reduce_tile_rows(), TILE_ROWS,
-                           "segment_reduce")
+    _build.check_constant(lib.segment_reduce_tile_rows(), TILE_ROWS,
+                          "segment_reduce", "TILE_ROWS")
     return lib
 
 

@@ -69,8 +69,8 @@ def _lib() -> ctypes.CDLL:
         [p] * 3 + [ctypes.c_longlong, ctypes.c_int, p, p])
     lib.stream_compact_launch.restype = ctypes.c_int
     lib.stream_compact_tile_rows.restype = ctypes.c_int
-    _build.check_tile_rows(lib.stream_compact_tile_rows(), TILE_ROWS,
-                           "stream_compact")
+    _build.check_constant(lib.stream_compact_tile_rows(), TILE_ROWS,
+                          "stream_compact", "TILE_ROWS")
     return lib
 
 

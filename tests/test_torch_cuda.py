@@ -411,10 +411,10 @@ def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
 @pytest.mark.cuda
 def test_cuda_reduced_qwen2_routes_part_only_at_near_ties(cuda_device):
     """Where the kernel engine's greedy tokens leave the plain engine's
-    (the bf16 flash rounds P to bf16 before P V; the plain route does not),
-    the first differing step is a near tie: fed the kernel engine's tokens
-    up to that step, each route puts the two tokens' logits within 2 bf16
-    steps of each other.  Prints each such step and its margins."""
+    (bf16 rounding in another order: the flash kernel's exponentials and
+    sums), the first differing step is a near tie: fed the kernel engine's
+    tokens up to that step, each route puts the two tokens' logits within 2
+    bf16 steps of each other.  Prints each such step and its margins."""
     import math
     from repro_torch.configs import get_reduced
     from repro_torch.models.zoo import get_model
@@ -458,8 +458,9 @@ def test_cuda_reduced_qwen2_routes_part_only_at_near_ties(cuda_device):
 
 # ---------------------------------------------------------------------------
 # ssm_scan (float32: within 2e-5 of the largest |plain| value, on y and hT —
-# the same steps in the same order; expf's and FMA contraction's rounding
-# and the order of the sum over N differ)
+# the same steps in the same order; the exponential (ex2 on the special-
+# function unit), FMA contraction's rounding and the order of the sum over
+# N differ)
 # ---------------------------------------------------------------------------
 
 SSM_TOL = 2e-5
@@ -492,6 +493,62 @@ def test_cuda_ssm_scan_matches_plain(cuda_device, n):
                     assert g.shape == w.shape and g.dtype == torch.float32
                     err = float((g - w).abs().max())
                     assert err <= SSM_TOL * float(w.abs().max()), (s, di, err)
+
+
+def _ssm_within_tol(got, want, what):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = float((g - w).abs().max())
+        assert err <= SSM_TOL * float(w.abs().max()), (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 5, 16, 32))
+def test_cuda_ssm_scan_at_tile_edges(cuda_device, n):
+    """The edges of N's plan: one short of and one past a buffer of L
+    steps and a stage of CHUNK steps, two stages and one; a ragged block
+    of channels; the path's (B 1, Di 8192)."""
+    from repro_torch.kernels import ssm_scan as sc
+    p = sc.plan(1, 8192, n)
+    gen = torch.Generator(cuda_device).manual_seed(100 + n)
+    for s in (p.lanes - 1, p.lanes, p.lanes + 1, sc.CHUNK - 1, sc.CHUNK,
+              sc.CHUNK + 1, 2 * sc.CHUNK + 1):
+        for bsz, di in ((2, p.channels - 1), (3, 2 * p.channels + 3),
+                        (1, 8192)):
+            ins = _ssm_inputs(gen, bsz, s, di, n, s % 2 == 1, cuda_device)
+            before = sc.ssm_scan.launches
+            got = sc.ssm_scan(*ins)
+            assert sc.ssm_scan.launches == before + 1
+            _ssm_within_tol(got, sc.ssm_scan_plain(*ins), (s, bsz, di))
+    ins = _ssm_inputs(gen, 1, 512, 8192, n, True, cuda_device)
+    _ssm_within_tol(sc.ssm_scan(*ins), sc.ssm_scan_plain(*ins), "path")
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_replays_from_a_graph(cuda_device):
+    """One call captured in a CUDA graph, replayed on two different inputs
+    copied into its static tensors: both replays equal the plain version
+    on those inputs, and the graph holds one kernel launch."""
+    from repro_torch.kernels import ssm_scan as sc
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    ins = _ssm_inputs(gen, 2, 2 * sc.CHUNK + 1, 200, 16, False, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm, off the capture
+        sc.ssm_scan(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sc.ssm_scan.launches
+    with torch.cuda.graph(graph):
+        got = sc.ssm_scan(*ins)
+    assert sc.ssm_scan.launches == before + 1
+    for i in range(2):
+        for t, new in zip(ins, _ssm_inputs(gen, 2, 2 * sc.CHUNK + 1, 200, 16,
+                                           i == 0, cuda_device)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        _ssm_within_tol(got, sc.ssm_scan_plain(*ins), f"replay {i}")
 
 
 @pytest.mark.cuda
@@ -571,6 +628,71 @@ def test_cuda_rg_lru_matches_plain(cuda_device, d):
                 for g, w in zip(got, want):
                     assert g.shape == w.shape and g.dtype == torch.float32
                     assert torch.equal(g, w), (s, bsz, d, zero_h0)
+
+
+def _rg_edge_steps(width):
+    """One short of, at and one past a stage, the prologue's stages - 1
+    tiles and one past them, the whole ring and one past it."""
+    from repro_torch.kernels import rg_lru as rg
+    steps, stages = rg.STEPS[width], rg.STAGES[width]
+    ring = (stages - 1) * steps
+    return (steps - 1, steps, steps + 1, ring, ring + 1, stages * steps,
+            stages * steps + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", (32, 16, 8, 4))
+def test_cuda_rg_lru_at_stage_edges(cuda_device, width):
+    """Bit for bit at the ring's edges, for each block width the plan
+    takes (its steps a stage and stages): S around a stage, the prologue
+    and the whole ring; one channel short of and one past a block; a D
+    that is no multiple of 4 (4-byte copies); the path's (B 1, D 4096) at
+    width 8."""
+    from repro_torch.kernels import rg_lru as rg
+    gen = torch.Generator(cuda_device).manual_seed(width)
+    # B and D chosen so that the plan takes this width
+    shapes = {32: ((5, 4096), (13, 31 * 32 + 1)),
+              16: ((1, 8192), (3, 16 * 140 - 1)),
+              8: ((1, 4096), (2, 8 * 200 + 4)),
+              4: ((1, 9), (3, 4 * 40 + 3))}[width]
+    for s in _rg_edge_steps(width):
+        for bsz, d in shapes:
+            assert rg.plan(bsz, d).width == width
+            ins = _rg_lru_inputs(gen, bsz, s, d, s % 2 == 0, cuda_device)
+            before = rg.rg_lru.launches
+            got = rg.rg_lru(*ins)
+            assert rg.rg_lru.launches == before + 1
+            for g, w in zip(got, rg.rg_lru_plain(*ins)):
+                assert torch.equal(g, w), (s, bsz, d)
+
+
+@pytest.mark.cuda
+def test_cuda_rg_lru_replays_from_a_graph(cuda_device):
+    """One call captured in a CUDA graph, replayed on two different inputs
+    copied into its static tensors: both replays equal the plain version
+    bit for bit, and the graph holds one kernel launch."""
+    from repro_torch.kernels import rg_lru as rg
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    shape = (1, _rg_edge_steps(rg.plan(1, 4096).width)[-1], 4096)
+    ins = _rg_lru_inputs(gen, *shape, False, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm, off the capture
+        rg.rg_lru(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rg.rg_lru.launches
+    with torch.cuda.graph(graph):
+        got = rg.rg_lru(*ins)
+    assert rg.rg_lru.launches == before + 1
+    for i in range(2):
+        for t, new in zip(ins, _rg_lru_inputs(gen, *shape, i == 0,
+                                              cuda_device)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, rg.rg_lru_plain(*ins)):
+            assert torch.equal(g, w), i
 
 
 @pytest.mark.cuda
