@@ -100,8 +100,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              0.25 and 0.5 and N in {1, 255, 256, 257, 2^20, 2^24} (half
              hits, half misses, negative keys); the path: ``ops.hash_lookup``
              over the hash_table app's own tables (benchmark size and 16x)
-             with the app's queries, equal to its expected results; times at
-             the app at 16x and at 2^24 slots and keys beside the bound.
+             with the app's queries, equal to its expected results; times
+             and kernels a call at the app at 16x and at 2^24 keys in 2^24
+             and 2^22 slots beside the bound.
 12. moe_kernel — the moe_dispatch kernel against its plain version, bit for
              bit, in bf16 and float32, over A in {1, 7, 256, 4096}, D in
              {32, 100, 2048}, E in {8, 64} and capacities that drop 0%,
@@ -197,13 +198,13 @@ HYBRID_LONG = 4096                 # the prompt past the window
 HYBRID_BF16_STEPS = 8
 
 # the hash probe: the sweep, the reference's default probe limit, and the
-# L2 size past which a table's sectors are counted per probe in the bound
+# timed tables of 2^24 keys: 2^24 slots, and 2^22 (its used part fits L2)
 HASH_SLOTS = (128, 1000, 1024, 1 << 16, 1 << 20, 1 << 24)
 HASH_LOADS = (0.25, 0.5)
 HASH_NS = (1, 255, 256, 257, 1 << 20, 1 << 24)
 HASH_LARGE = 1 << 24               # slots, and keys probed, at load 0.5
+HASH_MID = 1 << 22                 # slots, at load 0.5
 HASH_MAX_PROBES = 16
-L2_BYTES = 50e6
 
 # the MoE dispatch at olmoe-1b-7b's 512-token prefill (A = 512 x top-8,
 # D 2048, 64 experts, capacity(cfg, 512) = 80) and at 8192 tokens
@@ -2133,31 +2134,32 @@ def _probe_counts(keys, tk, n_slots, max_probes):
 
 
 def _hash_bound(keys, tk, n_slots, found) -> tuple[float, dict]:
-    """Bytes this data needs: 4 per key in, 8 per key out, and the table's
-    32-byte sectors (8 slots) that the probes touch: their union when both
-    tables fit L2, else each key's own (a sector per chain sector of
-    table_k, one of table_v per hit).  Returns (bound ms, the counts)."""
+    """Bytes this data needs, each read once: 4 per key in, 8 per key out,
+    and the 32-byte sectors (8 slots) of table_k that the chains touch and
+    of table_v that hold a hit, their union at every table size.  Beside
+    it, ``random_sector_ms``: each key's own sectors instead (its chain's of
+    table_k, one of table_v per hit), the first kernel's access pattern on
+    a table that does not stay in L2.  Returns (bound ms, the counts)."""
     import torch
     h, count = _probe_counts(keys, tk, n_slots, HASH_MAX_PROBES)
     n = keys.numel()
-    hits = int(found.sum())
-    if 2 * 4 * tk.numel() <= L2_BYTES:
-        seen = torch.zeros(tk.numel() // 8 + 1, dtype=torch.bool,
-                           device=keys.device)
-        for p in range(HASH_MAX_PROBES):
-            live = count > p
-            seen[(h[live] + p) // 8] = True
-        hit_idx = h[found.bool()] + count[found.bool()] - 1
-        v_sectors = int(torch.unique(hit_idx // 8).numel())
-        k_sectors = int(seen.sum())
-    else:
-        last = h + count.clamp(min=1) - 1
-        k_sectors = int(((last // 8) - (h // 8) + 1)[count > 0].sum())
-        v_sectors = hits
+    seen_k = torch.zeros(tk.numel() // 8 + 1, dtype=torch.bool,
+                         device=keys.device)
+    for p in range(HASH_MAX_PROBES):
+        live = count > p
+        seen_k[(h[live] + p) // 8] = True
+    hit = found.bool()
+    seen_v = torch.zeros_like(seen_k)
+    seen_v[(h[hit] + count[hit] - 1) // 8] = True
+    k_sectors, v_sectors = int(seen_k.sum()), int(seen_v.sum())
+    last = h + count.clamp(min=1) - 1
+    own = int(((last // 8) - (h // 8) + 1)[count > 0].sum()) + int(hit.sum())
     nbytes = 12 * n + 32 * (k_sectors + v_sectors)
-    return bytes_ms(nbytes), {"probes_per_key": float(count.float().mean()),
-                              "table_k_sectors": k_sectors,
-                              "table_v_sectors": v_sectors, "bytes": nbytes}
+    return bytes_ms(nbytes), {
+        "probes_per_key": float(count.float().mean()),
+        "table_k_sectors": k_sectors, "table_v_sectors": v_sectors,
+        "bytes": nbytes, "random_sectors": own,
+        "random_sector_ms": bytes_ms(12 * n + 32 * own)}
 
 
 def _hash_case(hp, q, tk, tv, n_slots, what, max_probes=HASH_MAX_PROBES):
@@ -2169,7 +2171,49 @@ def _hash_case(hp, q, tk, tv, n_slots, what, max_probes=HASH_MAX_PROBES):
     return want
 
 
-def phase_hash_kernel(dev):
+def _hash_timing_shapes(gen, app, dev):
+    """The timed shapes, one after another, as (label, keys, table_k,
+    table_v, n_slots): the hash_table app at 16x (the path), then 2^24 keys
+    at load 0.5 in 2^24 slots (``large``) and in 2^22 slots (``mid``, whose
+    used part fits the L2)."""
+    import numpy as np
+    import torch
+    yield ("path", *[torch.from_numpy(app.dram_init[k].astype(np.int32))
+                     .to(dev) for k in ("queries", "table_k", "table_v")],
+           app.statics["n_slots"])
+    for label, n_slots in (("large", HASH_LARGE), ("mid", HASH_MID)):
+        keys, tk, tv = _hash_table(gen, n_slots, 0.5, dev)
+        yield (label, _hash_queries(gen, keys, HASH_LARGE, dev), tk, tv,
+               n_slots)
+
+
+def hash_kernels_per_call(dev) -> dict:
+    """The kernels and memsets one hash_probe call puts on the card at each
+    timed shape (torch.profiler), which must be one kernel and none.
+    Counted before the other phases, as ``scan_kernels_per_call``, on
+    inputs of those shapes that are freed at once; counted again over 16
+    calls if a window dropped an event, as one did in a run."""
+    import torch
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.kernels import hash_probe as hp
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    app = ALL_APPS["hash_table"](**HASH_TABLE_16X)
+    out = {}
+    for label, q, tk, tv, n_slots in _hash_timing_shapes(gen, app, dev):
+        def call():
+            return hp.hash_probe(q, tk, tv, n_slots)
+        per = launches_per_call(call)
+        if per != {"kernels": 1, "memsets": 0}:
+            per = launches_per_call(call, calls=16)
+        require(per == {"kernels": 1, "memsets": 0},
+                f"hash_probe at {label} puts {per} on the card, not one "
+                "kernel")
+        out[label] = per
+    del q, tk, tv
+    return out
+
+
+def phase_hash_kernel(dev, per_call):
     import numpy as np
     import torch
     from repro_torch.apps import ALL_APPS
@@ -2233,16 +2277,11 @@ def phase_hash_kernel(dev):
     torch.cuda.synchronize()
     emit({"phase": "hash_kernel", "check": "exact vs plain", "cases": cases,
           "hits_found_share": [min(found_share), max(found_share)]})
-    # -- times: the app at 16x (the path) and 2^24 keys in 2^24 slots
+    # -- times: the app at 16x (the path), 2^24 keys in 2^24 and 2^22 slots
     rows = {}
-    app = apps["16x"]
-    path_in = [torch.from_numpy(app.dram_init[k].astype(np.int32)).to(dev)
-               for k in ("queries", "table_k", "table_v")]
-    large_keys, ltk, ltv = _hash_table(gen, HASH_LARGE, 0.5, dev)
-    large_in = [_hash_queries(gen, large_keys, HASH_LARGE, dev), ltk, ltv]
-    for label, (q, tk, tv), n_slots, iters in (
-            ("path", path_in, app.statics["n_slots"], 300),
-            ("large", large_in, HASH_LARGE, 20)):
+    for label, q, tk, tv, n_slots in _hash_timing_shapes(gen, apps["16x"],
+                                                         dev):
+        iters = 300 if label == "path" else 20
         v, f = _hash_case(hp, q, tk, tv, n_slots, f"{label} timing shape")
         bound, counts = _hash_bound(q, tk, n_slots, f)
         load = float((tk[:n_slots] != 0).float().mean())
@@ -2255,6 +2294,7 @@ def phase_hash_kernel(dev):
                                     iters),
                "kernel_graph_ms": graph_ms(
                    lambda: hp.hash_probe(q, tk, tv, n_slots), iters),
+               "kernels_per_call": per_call[label],
                "plain_ms": time_ms(
                    lambda: hp.hash_probe_plain(q, tk, tv, n_slots),
                    max(3, iters // 10)),
@@ -2265,7 +2305,7 @@ def phase_hash_kernel(dev):
         rows[label] = rec
         emit({"phase": "hash_kernel", "kernel": "hash_probe", "shape": label,
               **rec})
-    del large_in, ltk, ltv, large_keys
+    del q, tk, tv
     return {"hash_probe": {**rows, "max_abs_err": 0}}, launches
 
 
@@ -2772,7 +2812,9 @@ def main() -> int:
         return out
 
     per_call = scan_kernels_per_call(dev)
-    emit({"phase": "build", "kernels_per_call": per_call})
+    hash_per_call = hash_kernels_per_call(dev)
+    emit({"phase": "build", "kernels_per_call": {
+        **per_call, "hash_probe": hash_per_call}})
     timings = timed("kernels", phase_kernels, dev)
     tb = counting_backend()
     launches = timed("apps", phase_apps, tb)
@@ -2792,7 +2834,8 @@ def main() -> int:
     for name, rec in rg["d256_gqa"].items():
         timings[name]["d256_gqa"] = rec
     hybrid = timed("hybrid_lm", phase_hybrid_lm, dev)
-    hash_rows, hash_path = timed("hash_kernel", phase_hash_kernel, dev)
+    hash_rows, hash_path = timed("hash_kernel", phase_hash_kernel, dev,
+                                 hash_per_call)
     timings.update(hash_rows)
     timings.update(timed("moe_kernel", phase_moe_kernel, dev))
     moe_lm = timed("moe_lm", phase_moe_lm, dev)
@@ -2838,6 +2881,8 @@ def main() -> int:
                                            "dtype", "causal", "n_split")
                       if k in path},
             "large": timings[name]["large"],
+            **({"mid": timings[name]["mid"]} if "mid" in timings[name]
+               else {}),
             **({"head_dim_128": timings[name]["d128"]}
                if "d128" in timings[name] else {}),
             **({"head_dim_256": timings[name]["d256"]}

@@ -13,9 +13,8 @@ other; the two agree bit for bit.  Unlike the reference kernel, any N is
 taken (the reference asserts blocks of 256 keys), and any table size (the
 reference sends tables above 2^20 entries to XLA).
 
-Bound: bytes, keys in and two words out per key, plus the table (read once
-when it fits the 50 MB L2, else one 32-byte sector per probed sector), at
-3.35 TB/s on an H100 SXM.
+Bound: bytes, keys in and two words out per key, plus each 32-byte sector
+of the tables that the probes touch, read once, at 3.35 TB/s on an H100 SXM.
 """
 from __future__ import annotations
 
@@ -85,7 +84,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("hash_probe")
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.hash_probe_launch.argtypes = [p, p, p, ll, ll, ctypes.c_uint,
-                                      ctypes.c_int, p, p, p]
+                                      ctypes.c_int, p, p]
     lib.hash_probe_launch.restype = ctypes.c_int
     return lib
 
@@ -94,7 +93,7 @@ def hash_probe(keys: torch.Tensor, table_k: torch.Tensor,
                table_v: torch.Tensor, n_slots: int, max_probes: int = 16):
     """keys [N] int32; table_k/table_v [L] int32 (L = 2 * n_slots for an
     n_slots table duplicated to avoid wrap) -> (values [N], found [N]),
-    both int32.
+    both int32, views of one buffer.
 
     A CUDA tensor launches the kernel (raising if it cannot: non-contiguous
     input), a CPU tensor runs :func:`hash_probe_plain`."""
@@ -108,17 +107,27 @@ def hash_probe(keys: torch.Tensor, table_k: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"hash_probe: {name} must be contiguous")
     lib = _lib()
-    vals = torch.empty_like(keys)
-    found = torch.empty_like(keys)
-    with torch.cuda.device(keys.device):
-        err = lib.hash_probe_launch(
-            keys.data_ptr(), table_k.data_ptr(), table_v.data_ptr(),
-            keys.shape[0], table_k.shape[0], n_slots, max_probes,
-            vals.data_ptr(), found.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    n = keys.shape[0]
+    out = torch.empty(2 * n, dtype=torch.int32, device=keys.device)
+    if keys.device.index == torch.cuda.current_device():
+        err = _launch(lib, keys, table_k, table_v, n_slots, max_probes, out)
+    else:
+        with torch.cuda.device(keys.device):
+            err = _launch(lib, keys, table_k, table_v, n_slots, max_probes,
+                          out)
     hash_probe.launches += 1
     _build.check(lib, "hash_probe", err)
-    return vals, found
+    return out[:n], out[n:]
+
+
+def _launch(lib, keys, table_k, table_v, n_slots, max_probes, out):
+    # the raw stream handle: ``current_stream()`` builds a Stream object,
+    # the larger part of an eager call's host time at the app's size
+    stream = torch._C._cuda_getCurrentRawStream(keys.device.index)
+    return lib.hash_probe_launch(
+        keys.data_ptr(), table_k.data_ptr(), table_v.data_ptr(),
+        keys.shape[0], table_k.shape[0], n_slots, max_probes,
+        out.data_ptr(), stream)
 
 
 #: kernel launches so far (CUDA calls only; the plain path does not count)

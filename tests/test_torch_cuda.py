@@ -927,3 +927,12 @@ def test_cuda_hash_probe_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         hash_probe(k.cpu(), t, t, 8)
     assert hash_probe.launches == before
+    # what it takes: both outputs are views of one int32 buffer, values
+    # then found flags
+    vals, found = hash_probe(k, t, t, 8)
+    assert vals.untyped_storage().data_ptr() == \
+        found.untyped_storage().data_ptr()
+    assert found.data_ptr() == vals.data_ptr() + 4 * k.numel()
+    assert vals.shape == found.shape == k.shape
+    assert torch.equal(found, torch.ones_like(k))       # key 0, empty slot
+    assert hash_probe.launches == before + 1

@@ -173,3 +173,59 @@ def test_hash_lookup_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.hash_lookup(np.arange(4), np.zeros(8), np.zeros(8), 4)
+
+
+def _walk_slots(keys, tk, n_slots, max_probes):
+    """Each key's slots read, as the kernel walks them: (home, slots read,
+    the slot of its hit or -1)."""
+    homes, reads, hits = [], [], []
+    for k in keys:
+        h = ref_oracle._mix_ref(int(k)) % n_slots
+        n, hit = 0, -1
+        for p in range(max_probes):
+            if h + p >= len(tk):
+                break
+            n += 1
+            if tk[h + p] == k:
+                hit = h + p
+                break
+            if tk[h + p] == 0:
+                break
+        homes.append(h)
+        reads.append(n)
+        hits.append(hit)
+    return homes, reads, hits
+
+
+@pytest.mark.parametrize("n_slots,load,n", [(64, 0.5, 300), (64, 1.0, 300),
+                                            (1000, 0.5, 5000)])
+def test_smoke_bound_counts_each_table_sector_once(n_slots, load, n):
+    """``chip_smoke._hash_bound`` charges each 32-byte sector of table_k
+    that a chain reads, and of table_v that holds a hit, once (their union,
+    whatever the table's size), and reports each key's own sectors beside
+    it as ``random_sectors``."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rng = np.random.default_rng(15)
+    keys, tk, tv = _table(rng, n_slots, load)
+    q = _queries(rng, keys, n)
+    q[::41] = 0                                   # EMPTY as a key
+    mp = chip_smoke.HASH_MAX_PROBES
+    homes, reads, hits = _walk_slots(q, tk, n_slots, mp)
+    k_sec = {(h + p) // 8 for h, r in zip(homes, reads) for p in range(r)}
+    v_sec = {s // 8 for s in hits if s >= 0}
+    own = sum((h + r - 1) // 8 - h // 8 + 1
+              for h, r in zip(homes, reads) if r > 0)
+    own += sum(s >= 0 for s in hits)
+    qt, tkt, tvt = (torch.from_numpy(a.astype(np.int32)) for a in (q, tk, tv))
+    _, found = hp.hash_probe_plain(qt, tkt, tvt, n_slots, mp)
+    ms, counts = chip_smoke._hash_bound(qt, tkt, n_slots, found)
+    assert counts["table_k_sectors"] == len(k_sec)
+    assert counts["table_v_sectors"] == len(v_sec)
+    assert counts["bytes"] == 12 * n + 32 * (len(k_sec) + len(v_sec))
+    assert counts["random_sectors"] == own > len(k_sec) + len(v_sec)
+    assert ms == chip_smoke.bytes_ms(counts["bytes"])
+    assert counts["random_sector_ms"] == chip_smoke.bytes_ms(12 * n
+                                                             + 32 * own)
