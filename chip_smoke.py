@@ -14,8 +14,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              instance must issue tensor-core instructions (HMMA), no float32
              one may; no instance of the two scan kernels may spill or keep
              a stack frame, and one call of each at its path shape must
-             put one kernel on the card (torch.profiler, taken here, before
-             the other phases).
+             put one kernel on the card (the nodes of one captured call,
+             taken here, before the other phases).
 2. kernels — each kernel against its plain torch version on the card, exact
              equality of outputs (zeros past the count included), count and
              carry: windows of 1, 127, 128, 129 and 512 lanes, D in 1..5,
@@ -27,8 +27,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              nothing, under a closed carry with acc != init).  Times (CUDA
              events; eager and from a CUDA graph, each replay held to the
              plain version) beside the bytes bound and a library call (from
-             a graph where it can be captured); the kernels and memsets of
-             one call (torch.profiler): exactly one kernel at N = 128, one
+             a graph where it can be captured); the kernels, memsets and
+             copies of one call (the nodes of one captured call): exactly
+             one kernel at N = 128 and in the device-carry entry, one
              kernel and at most two memsets at 2^24.
 3. apps    — the nine Table III apps at benchmark scale through
              ``repro_torch.revet`` on ``TorchBackend("cuda")``: DRAM, stats
@@ -37,6 +38,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. serve   — ``DataflowEngine.step_batch`` of 8 requests with distinct seeds
              (strlen, hash_table) against sequential numpy serving, and one
              placed, replicated ``execute_batch``.
+4b. resident — the same ten app runs with ``execution="resident"`` (the
+             resident loop, ``core/device_vm.py``: ticks replayed from a
+             captured CUDA graph, with ``stream_compact`` and the
+             device-carry ``segment_reduce`` inside), then a batch of 3 per
+             app: DRAM and lane stats equal to the oracle, no windowed
+             backend call, host reads equal to replays, both kernels
+             launched by the replays; murmur3's and hash_table's ticks
+             equal to the CPU port's; per app, wall beside the windowed and
+             oracle walls, capture seconds, ticks, ticks per replay,
+             replays, kernels per tick (the nodes of one captured block) and
+             µs per tick; then ``DataflowEngine(compiled,
+             execution="resident")`` serving 8 strlen requests.
 5. attention — the flash and decode attention kernels against their plain
              versions (float32 2e-5, bfloat16 2e-2) at the LM path's shapes
              (heads matched, and qwen2-0.5b's own 14 query heads on 2 kv
@@ -59,7 +72,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              a large one, with times (eager and from a CUDA graph, each
              replay held to the plain version) beside the bound (no PyTorch
              call computes a selective scan), the kernels of one call
-             (torch.profiler, before the other phases: exactly one); one
+             (captured, before the other phases: exactly one); one
              captured call replayed on two new inputs.
 8. ssm_lm  — full-width, full-depth falcon-mamba-7b (random weights drawn
              on the card) served by ``DecodeEngine`` on the same 8
@@ -78,7 +91,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              each (B, D)'s plan sets them; D at each block width's edge,
              and no multiple of 4); then at the path shape and a large
              one, with times beside the bound (each graph replay bit for
-             bit), one kernel a call (torch.profiler), one captured call
+             bit), one kernel a call (captured), one captured call
              replayed on two new inputs; flash and decode attention at
              head dim 256 against their plain versions, with 16 kv heads
              and with recurrentgemma-9b's own one kv head for 16 query
@@ -217,6 +230,7 @@ MOE_N_PARAMS = 6919624704          # 16 layers, d 2048, 64 experts top-8
 MOE_ATTN_BF16_STEPS = 8
 
 PATH_LANES = (1, 127, 128, 129, 512)
+CARRY_LANES = (1, 2, 127, 128, 256, 4096)   # the device-carry entry's windows
 LARGE_N = 1 << 24
 
 
@@ -281,23 +295,58 @@ def graph_ms(fn, iters: int, reps: int = 5, check=None) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def launches_per_call(fn, calls: int = 4) -> dict:
-    """CUDA kernels and memsets that one call of ``fn`` puts on the card,
-    counted by torch.profiler over ``calls`` calls after a warm one."""
+_CU_NODE_KERNEL, _CU_NODE_MEMCPY, _CU_NODE_MEMSET = 0, 1, 2  # CUgraphNodeType
+
+
+def graph_nodes(fn) -> dict:
+    """The kernel, memset and copy nodes that one call of ``fn`` records in
+    a CUDA graph, read from the captured graph through the driver
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  The call is captured,
+    not run; the graph is freed at once.  Exact where a torch.profiler
+    window is not: on the card's torch a window lost events of the kernels
+    launched from this repo's ctypes libraries (15 of 16 hash_probe calls
+    seen, none of the device-carry entry's)."""
+    import ctypes
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        require(rc == 0, f"{what} returned CUresult {rc}")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    graph.reset()
+    return {"kernels": kinds.count(_CU_NODE_KERNEL),
+            "memsets": kinds.count(_CU_NODE_MEMSET),
+            "copies": kinds.count(_CU_NODE_MEMCPY)}
+
+
+def launches_per_call(fn) -> dict:
+    """CUDA kernels, memsets and copies that one call of ``fn`` puts on the
+    card: the nodes of one captured call (``graph_nodes``), after a warm
+    call off the capture."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    memsets = sum("memset" in x.lower() for x in names)
-    return {"kernels": (len(names) - memsets) / calls,
-            "memsets": memsets / calls}
+    return graph_nodes(fn)
+
+
+ONE_KERNEL = {"kernels": 1, "memsets": 0, "copies": 0}
 
 
 def library_graph(fn, iters: int, what: str) -> dict:
@@ -381,6 +430,38 @@ def _same_segred(got, want) -> bool:
     import torch
     return (int(got[2]) == int(want[2]) and torch.equal(got[3], want[3])
             and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def _carry_inputs(rng, w, t, dev):
+    import numpy as np
+    import torch
+    kinds, vals = _segred_window(rng, w, 3)
+    n = int(rng.integers(0, w + 1)) if t else 0
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    return (i32(kinds), i32(vals) if t % 2 else None,
+            i32(rng.integers(0, 8, w)), i32(n).reshape(()),
+            [int(rng.integers(I32_MIN, I32_MAX)), t % 2])
+
+
+def _carry_case(sr, rng, w, op, t, dev):
+    """``segment_reduce_carry`` on the card against its plain version:
+    every output word and the carry after the call."""
+    import torch
+    kinds, vals, rids, n, carry0 = _carry_inputs(rng, w, t, dev)
+    init = int(rng.integers(-4, 5))
+    outs = []
+    for d in (dev, "cpu"):
+        carry = torch.tensor(carry0, dtype=torch.int32, device=d)
+        got = sr.segment_reduce_carry(
+            kinds.to(d), None if vals is None else vals.to(d), rids.to(d),
+            n.to(d), op, init, carry)
+        outs.append([x.cpu() for x in got] + [carry.cpu()])
+    require(all(torch.equal(a, b) for a, b in zip(*outs)),
+            f"segment_reduce_carry differs from plain at w={w} op={op} "
+            f"n={int(n)}")
+    if int(n) == 0:
+        require(outs[0][-1].tolist() == carry0,
+                "segment_reduce_carry moved the carry at n = 0")
 
 
 def _edge_kinds(rng, n, tile):
@@ -500,6 +581,14 @@ def phase_kernels(dev):
                  0, 0, False, dev)
     cases += 1
     cases += _tile_edge_cases(sc, sr, rng, dev)
+    # -- the device-carry entry of the resident loop: every op, windows of
+    #    1 (protocol barriers) to 4096 lanes, any valid count (0 included),
+    #    values or none, the carry written back in place
+    for w in CARRY_LANES:
+        for op in sr.OPS:
+            for t in range(4):
+                _carry_case(sr, rng, w, op, t, dev)
+                cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "check": "exact vs plain", "cases": cases})
     return time_kernels(dev, sc, sr, rng)
@@ -508,9 +597,9 @@ def phase_kernels(dev):
 def time_kernels(dev, sc, sr, rng):
     """Times at one window of the main path and at 2^24 rows: eager (CUDA
     events around a loop of calls) and from a CUDA graph (the host's issue
-    taken out, the replay held to the plain version); the kernels and
-    memsets a call puts on the card (torch.profiler); a library call beside
-    each, eager and, where it can be captured, from a graph."""
+    taken out, the replay held to the plain version); the kernels, memsets
+    and copies a call puts on the card (``launches_per_call``); a library
+    call beside each, eager and, where it can be captured, from a graph."""
     import numpy as np
     import torch
     rows = {}
@@ -590,13 +679,47 @@ def time_kernels(dev, sc, sr, rng):
         rows.setdefault("segment_reduce", {})[label] = rec
         emit({"phase": "kernels", "kernel": "segment_reduce", "shape": label,
               **rec})
+    # the device-carry entry at the resident loop's window: VLEN lanes, all
+    # valid, kinds, vals and rids read, three 2W output columns, count
+    # and carry written (the carry changes each call, so a replay is held
+    # to nothing; the exact checks are phase_kernels')
+    w = 128
+    kinds, vals, rids, n, carry0 = _carry_inputs(rng, w, 1, dev)
+    n.fill_(w)
+    carry = torch.tensor(carry0, dtype=torch.int32, device=dev)
+    plain_carry = carry.cpu()
+    call = lambda: sr.segment_reduce_carry(kinds, vals, rids, n, "add", 0,
+                                           carry)
+    want = sr.segment_reduce_carry_plain(kinds.cpu(), vals.cpu(), rids.cpu(),
+                                         n.cpu(), "add", 0, plain_carry)
+    got = call()
+    rec = {"n": w, "emitted": int(want[3]),
+           "max_abs_err": max(_max_err(g.cpu(), x)
+                              for g, x in zip(got[:3], want[:3])),
+           "kernel_ms": time_ms(call, 300),
+           "kernel_graph_ms": graph_ms(call, 300),
+           "kernels_per_call": launches_per_call(call),
+           "plain_ms": time_ms(lambda: sr.segment_reduce_carry_plain(
+               kinds, vals, rids, n, "add", 0, carry.clone()), 100),
+           "library_ms": None,
+           "library_note": "none: no PyTorch call reduces with a device "
+                           "carry and emits per barrier",
+           "bound_ms": bytes_ms(12 * w + 4 + 8 + 24 * w + 4 + 8)}
+    require(rec["max_abs_err"] == 0, "segment_reduce_carry differs from plain")
+    rows["segment_reduce"]["device_carry"] = rec
+    emit({"phase": "kernels", "kernel": "segment_reduce",
+          "entry": "device_carry", **rec})
     for name, rec in rows.items():
         per = rec["path"]["kernels_per_call"]
-        require(per == {"kernels": 1, "memsets": 0},
+        require(per == ONE_KERNEL,
                 f"{name} at N = 128 puts {per} on the card, not one kernel")
         per = rec["large"]["kernels_per_call"]
-        require(per["kernels"] == 1 and per["memsets"] <= 2,
+        require(per["kernels"] == 1 and per["memsets"] <= 2 and
+                not per["copies"],
                 f"{name} at N = 2^24 puts {per} on the card")
+    per = rows["segment_reduce"]["device_carry"]["kernels_per_call"]
+    require(per == ONE_KERNEL, f"the device-carry entry at {w} lanes puts "
+            f"{per} on the card, not one kernel")
     torch.cuda.synchronize()
     return rows
 
@@ -667,18 +790,20 @@ def _run_app(name, app, tb):
     after, calls = _launches(), tb.calls - calls
     _same_run(name, ex_np, ex_t)
     check_app(app, ex_t.dram)
-    emit({"phase": "apps", "app": name, "match": True,
-          "torch_cuda_wall_s": ex_t.report.wall_s,
-          "numpy_wall_s": ex_np.report.wall_s,
-          "backend_calls": calls,
-          "us_per_call": ex_t.report.wall_s / calls * 1e6,
-          "launches": {k: after[k] - before[k] for k in after}})
+    rec = {"phase": "apps", "app": name, "match": True,
+           "torch_cuda_wall_s": ex_t.report.wall_s,
+           "numpy_wall_s": ex_np.report.wall_s,
+           "backend_calls": calls,
+           "us_per_call": ex_t.report.wall_s / calls * 1e6,
+           "launches": {k: after[k] - before[k] for k in after}}
+    emit(rec)
+    return rec["torch_cuda_wall_s"]
 
 
 # torch.profiler's cost grows with the events it records: a whole huff_dec
 # run (129k backend calls) does not finish within the script's time limit,
 # so each app is profiled over its first PROFILE_CALLS backend calls only.
-PROFILE_CALLS = 4000
+PROFILE_CALLS = 1500       # 4000 until the resident phase joined the run
 
 
 def device_busy(name, app, tb) -> dict:
@@ -745,9 +870,10 @@ def phase_apps(tb):
     from repro_torch.apps import ALL_APPS
     t0 = time.perf_counter()
     _reset_launches()
-    for name in sorted(BENCH_SIZES):
-        _run_app(name, ALL_APPS[name](**BENCH_SIZES[name]), tb)
-    _run_app("hash_table_16x", ALL_APPS["hash_table"](**HASH_TABLE_16X), tb)
+    walls = {name: _run_app(name, ALL_APPS[name](**BENCH_SIZES[name]), tb)
+             for name in sorted(BENCH_SIZES)}
+    walls["hash_table_16x"] = _run_app(
+        "hash_table_16x", ALL_APPS["hash_table"](**HASH_TABLE_16X), tb)
     launches = _launches()
     for k, v in launches.items():
         require(v > 0, f"the apps never launched the {k} kernel")
@@ -757,7 +883,7 @@ def phase_apps(tb):
     # profiler (after the counts are read, so they hold one run per app)
     for name in sorted(BENCH_SIZES):
         emit(device_busy(name, ALL_APPS[name](**BENCH_SIZES[name]), tb))
-    return launches
+    return launches, walls
 
 
 # ---------------------------------------------------------------------------
@@ -842,6 +968,165 @@ def phase_serve(tb):
           "window": reps * VLEN, "requests": len(reqs), "match": True,
           "wall_s": wall, "requests_per_s": len(reqs) / wall,
           "launches": launches})
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the resident loop
+# ---------------------------------------------------------------------------
+
+def _resident_instances():
+    from repro_torch.apps import ALL_APPS
+    out = {name: ALL_APPS[name](**BENCH_SIZES[name])
+           for name in sorted(BENCH_SIZES)}
+    out["hash_table_16x"] = ALL_APPS["hash_table"](**HASH_TABLE_16X)
+    return out
+
+
+def _same_resident(name, got, want):
+    """DRAM (of each request of a batch) and the aggregate lane stats of a
+    resident run equal the oracle's."""
+    from repro_torch.core.vector_vm import LANE_STATS
+    require(got.report.execution == "resident",
+            f"{name}: the resident run fell back to windowed "
+            f"({getattr(got.vm, 'resident_fallback', None)})")
+    pairs = (list(zip(got, want)) if hasattr(got, "executions")
+             else [(got, want)])
+    for rid, (g, w) in enumerate(pairs):
+        for arr in w.dram:
+            require(w.dram[arr].shape == g.dram[arr].shape and
+                    (w.dram[arr] == g.dram[arr]).all(),
+                    f"{name} rid={rid}: resident dram '{arr}' differs "
+                    "from the oracle")
+    lane = lambda st: {k: int(st.get(k, 0)) for k in LANE_STATS}
+    require(lane(got.report.stats) == lane(want.report.stats),
+            f"{name}: resident lane stats differ from the oracle")
+
+
+def _graph_per_tick(dp) -> dict:
+    """Graph nodes (``graph_nodes`` of one more capture of the program's
+    block of ticks, its launch counters left as they were) and device µs
+    (CUDA events over replays of the program's own graph), per tick.  The
+    masked form issues every kernel of a tick whatever the state, so a
+    replay after the run measures what each of the run's replays issued."""
+    import torch
+    from repro_torch.core import device_vm
+    k = dp.ticks_per_replay
+    counts = [kern.launches for kern in device_vm._KERNELS]
+    nodes = graph_nodes(lambda: dp._block(dp._st, dp.form))
+    for kern, n in zip(device_vm._KERNELS, counts):
+        kern.launches = n
+    reps = 10
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        dp._graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return {"kernels_per_tick": nodes["kernels"] / k,
+            "memsets_per_tick": nodes["memsets"] / k,
+            "copies_per_tick": nodes["copies"] / k,
+            "graph_us_per_tick": e0.elapsed_time(e1) / (reps * k) * 1e3}
+
+
+def phase_resident(tb, windowed_walls):
+    """The nine apps at ``BENCH_SIZES`` and hash_table at 16x with
+    ``execution="resident"``: one request, then a batch of 3, each equal to
+    the oracle; no windowed backend call; both kernels launched from the
+    replayed ticks; murmur3's and hash_table's ticks equal the CPU port's;
+    ``DataflowEngine(compiled, execution="resident")`` serving 8 strlen
+    requests from distinct seeds."""
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.apps.common import check_app
+    from repro_torch.core.backend import NumpyBackend, TorchBackend
+    from repro_torch.core.device_vm import DeviceRun
+    from repro_torch.serve.dataflow import DataflowEngine, DataflowRequest
+    t0 = time.perf_counter()
+    cpu = TorchBackend("cpu")
+    calls0 = tb.calls
+    _reset_launches()
+    for name, app in _resident_instances().items():
+        lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
+        compiled = lowered.compile(tb)
+        want = lowered.compile(NumpyBackend()).execute(dict(app.dram_init),
+                                                       app.params)
+        before = _launches()
+        got = compiled.execute(dict(app.dram_init), app.params,
+                               execution="resident")
+        after = _launches()
+        _same_resident(name, got, want)
+        check_app(app, got.dram)
+        run = got.vm
+        require(isinstance(run, DeviceRun) and run.host_reads == run.replays,
+                f"{name}: host reads {run.host_reads} != replays "
+                f"{run.replays}")
+        ticks = run.stats["ticks"]
+        rec = {"phase": "resident", "app": name, "match": True,
+               "execution": got.report.execution,
+               "resident_wall_s": got.report.wall_s,
+               "windowed_wall_s": windowed_walls[name],
+               "numpy_wall_s": want.report.wall_s,
+               "resident_over_windowed": got.report.wall_s /
+               windowed_walls[name],
+               "resident_over_numpy": got.report.wall_s / want.report.wall_s,
+               "capture_s": run.capture_s, "form": run.form, "ticks": ticks,
+               "ticks_per_replay": run.ticks_per_replay,
+               "replays": run.replays, "host_reads": run.host_reads,
+               "us_per_tick": run.run_s / ticks * 1e6,
+               "contexts": len(run.fires),
+               "ready_share": float(run.fires.sum()) /
+               (ticks * len(run.fires)),
+               "launches": {k: after[k] - before[k] for k in after},
+               **_graph_per_tick(run.program)}
+        if name in ("murmur3", "hash_table"):
+            cpu_run = lowered.compile(cpu).execute(
+                dict(app.dram_init), app.params, execution="resident")
+            rec["cpu_port_ticks"] = cpu_run.report.stats["ticks"]
+            require(rec["cpu_port_ticks"] == ticks,
+                    f"{name}: {ticks} ticks on the card, "
+                    f"{rec['cpu_port_ticks']} on the CPU port")
+        # a fused batch of 3 against the oracle's batch
+        reqs = [(dict(app.dram_init), dict(app.params))] * 3
+        bw = lowered.compile(NumpyBackend()).execute_batch(reqs)
+        t1 = time.perf_counter()
+        br = compiled.execute_batch(reqs, execution="resident")
+        rec["batch3_wall_s"] = time.perf_counter() - t1
+        rec["batch3_ticks"] = br.report.stats["ticks"]
+        _same_resident(f"{name} batch of 3", br, bw)
+        emit(rec)
+    # served: DataflowEngine batches as resident runs (pow2 buckets)
+    apps = [ALL_APPS["strlen"](seed=s) for s in range(8)]
+    _pad_inputs(apps)
+    app = apps[0]
+    lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
+    eng = DataflowEngine(lowered.compile(tb), execution="resident")
+    seq = DataflowEngine(lowered.compile("numpy"))
+    for e in (eng, seq):
+        for rid, a in enumerate(apps):
+            e.submit(DataflowRequest(rid, dict(a.params), dict(a.dram_init)))
+    t1 = time.perf_counter()
+    batch = eng.step_batch(max_batch=8)
+    wall = time.perf_counter() - t1
+    want = seq.drain(max_batch=1)
+    require([r.rid for r in batch] == list(range(8)),
+            "resident serving: step_batch did not serve the 8 requests")
+    for b, w, a in zip(batch, want, apps):
+        require(b.report.execution == "resident",
+                f"strlen rid={b.rid}: served windowed")
+        for arr in w.dram:
+            require((b.dram[arr] == w.dram[arr]).all(),
+                    f"strlen rid={b.rid}: served resident '{arr}' differs")
+        check_app(a, b.dram)
+    launches = _launches()
+    require(tb.calls == calls0,
+            f"the resident phase made {tb.calls - calls0} windowed backend "
+            "calls")
+    for k, v in launches.items():
+        require(v > 0, f"the resident runs never launched the {k} kernel")
+    emit({"phase": "resident", "app": "strlen", "served": 8,
+          "bucket": eng.bucket_sizes, "wall_s": wall,
+          "requests_per_s": 8 / wall, "match": True,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1326,11 +1611,9 @@ def _scan_case(name, kernel, plain, ins, what) -> tuple[float, float]:
 
 
 def scan_kernels_per_call(dev) -> dict:
-    """The kernels and memsets one call of each scan kernel puts on the card
-    at its path shape (torch.profiler), which must be one kernel and none.
-    Taken before the other phases: later in a run, on the card's torch
-    2.11, the profiler's windows of a few calls saw no device event of
-    these kernels, while the same count in a fresh process saw each."""
+    """The kernels, memsets and copies one call of each scan kernel puts on
+    the card at its path shape (``launches_per_call``), which must be one
+    kernel and nothing else.  Taken before the other phases."""
     import torch
     from repro_torch.kernels import rg_lru as rg
     from repro_torch.kernels import ssm_scan as sc
@@ -1340,7 +1623,7 @@ def scan_kernels_per_call(dev) -> dict:
     out = {"ssm_scan": launches_per_call(lambda: sc.ssm_scan(*ssm_ins)),
            "rg_lru": launches_per_call(lambda: rg.rg_lru(*rg_ins))}
     for name, per in out.items():
-        require(per == {"kernels": 1, "memsets": 0},
+        require(per == ONE_KERNEL,
                 f"{name} at its path shape puts {per} on the card, not one "
                 "kernel")
     return out
@@ -2188,11 +2471,11 @@ def _hash_timing_shapes(gen, app, dev):
 
 
 def hash_kernels_per_call(dev) -> dict:
-    """The kernels and memsets one hash_probe call puts on the card at each
-    timed shape (torch.profiler), which must be one kernel and none.
-    Counted before the other phases, as ``scan_kernels_per_call``, on
-    inputs of those shapes that are freed at once; counted again over 16
-    calls if a window dropped an event, as one did in a run."""
+    """The kernels, memsets and copies one hash_probe call puts on the card
+    at each timed shape (``launches_per_call``), which must be one kernel
+    and nothing else.  Counted before the other phases, as
+    ``scan_kernels_per_call``, on inputs of those shapes that are freed at
+    once."""
     import torch
     from repro_torch.apps import ALL_APPS
     from repro_torch.kernels import hash_probe as hp
@@ -2203,9 +2486,7 @@ def hash_kernels_per_call(dev) -> dict:
         def call():
             return hp.hash_probe(q, tk, tv, n_slots)
         per = launches_per_call(call)
-        if per != {"kernels": 1, "memsets": 0}:
-            per = launches_per_call(call, calls=16)
-        require(per == {"kernels": 1, "memsets": 0},
+        require(per == ONE_KERNEL,
                 f"hash_probe at {label} puts {per} on the card, not one "
                 "kernel")
         out[label] = per
@@ -2817,8 +3098,10 @@ def main() -> int:
         **per_call, "hash_probe": hash_per_call}})
     timings = timed("kernels", phase_kernels, dev)
     tb = counting_backend()
-    launches = timed("apps", phase_apps, tb)
+    launches, windowed_walls = timed("apps", phase_apps, tb)
+    apps_launches = dict(launches)
     timed("serve", phase_serve, tb)
+    resident = timed("resident", phase_resident, tb, windowed_walls)
     attn = timed("attention", phase_attention, dev)
     for name, rec in attn.pop("d128").items():
         attn[name]["d128"] = rec
@@ -2849,8 +3132,11 @@ def main() -> int:
     launches["moe_dispatch"] = moe_lm["moe_dispatch"]
     # each path's own run, counted from 0 (the line's ``launches`` is the
     # first path that runs the kernel)
-    by_path = {"lm": lm, "ssm_lm": ssm_lm, "hybrid_lm": hybrid,
+    by_path = {"apps": apps_launches, "resident": resident, "lm": lm,
+               "ssm_lm": ssm_lm, "hybrid_lm": hybrid,
                "hash_kernel": hash_path, "moe_lm": moe_lm}
+    for name, n in resident.items():        # the executor kernels' paths
+        launches[name] += n
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2864,7 +3150,9 @@ def main() -> int:
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
             "max_abs_err": timings[name].get("max_abs_err", max(
-                timings[name][k]["max_abs_err"] for k in ("path", "large"))),
+                timings[name][k]["max_abs_err"]
+                for k in ("path", "large", "device_carry")
+                if k in timings[name])),
             "ms": path["kernel_ms"], "plain_ms": path["plain_ms"],
             **({"graph_ms": path["kernel_graph_ms"]}
                if "kernel_graph_ms" in path else {}),
@@ -2883,6 +3171,8 @@ def main() -> int:
             "large": timings[name]["large"],
             **({"mid": timings[name]["mid"]} if "mid" in timings[name]
                else {}),
+            **({"device_carry": timings[name]["device_carry"]}
+               if "device_carry" in timings[name] else {}),
             **({"head_dim_128": timings[name]["d128"]}
                if "d128" in timings[name] else {}),
             **({"head_dim_256": timings[name]["d256"]}
@@ -2892,7 +3182,7 @@ def main() -> int:
                if "d256_gqa" in timings[name] else {}),
             **({"launches_by_path": {p: c[name] for p, c in by_path.items()
                                      if c.get(name)}}
-               if name in _lm_kernels() else {})})
+               if name in _lm_kernels() or name in resident else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -470,14 +470,18 @@ def fuse_dram_images(dfg, inits: Sequence[dict]) -> dict[str, np.ndarray]:
 def _resident_program(result: CompileResult, backend, n_requests: int,
                       pool_override: dict, placement, **dp_kwargs):
     """The per-launch-shape :class:`~repro_torch.core.device_vm.DeviceProgram`
-    cache: one jit trace per ``(n_requests, pools, ring caps)`` shape for
-    the lifetime of the ``CompileResult`` — the resident analogue of the
-    windowed path's per-window kernel cache, with one entry per *program*.
+    cache: one CUDA-graph capture per ``(device, n_requests, pools, ring
+    caps)`` shape for the lifetime of the ``CompileResult`` — the resident
+    analogue of the windowed path's per-window kernel cache, with one entry
+    per *program*.  The capture happens here (``DeviceProgram.prepare``),
+    so a run's wall excludes it (``DeviceProgram.capture_s``).
     """
     cache = getattr(result, "_resident_cache", None)
     if cache is None:
         cache = result._resident_cache = {}
-    key = (n_requests,
+    # a program lives on its backend's device: the CPU's and the card's
+    # share a CompileResult but not a DeviceProgram
+    key = (getattr(backend, "device", backend.name), n_requests,
            tuple(sorted(pool_override.items())),
            tuple(sorted((dp_kwargs.get("queue_caps") or {}).items())),
            dp_kwargs.get("max_ticks"))
@@ -487,6 +491,7 @@ def _resident_program(result: CompileResult, backend, n_requests: int,
             result, placement=placement, n_requests=n_requests,
             pool_override=pool_override,
             **{k: v for k, v in dp_kwargs.items() if v is not None})
+        dp.prepare()
     return dp
 
 
@@ -506,21 +511,22 @@ def run_fused(result: CompileResult, backend, requests: Sequence[tuple],
     across R graph replicas, each contributing one ``VLEN``-lane slice of
     every window — bit-identical outputs, R× issue width.
 
-    ``execution="resident"`` compiles the whole program into **one**
-    device launch (DESIGN.md §9) instead of the host superstep loop; it
-    needs a resident-capable backend (jax) and falls back to the windowed
-    path — recording the reason on ``vm.resident_fallback`` — for graph
-    constructs the fused loop cannot express yet.  The resident launch
+    ``execution="resident"`` runs the whole program on the device
+    (DESIGN.md §9) instead of the host superstep loop: on CUDA, ticks
+    captured once as a CUDA graph and replayed to quiescence.  It needs a
+    resident-capable backend (``TorchBackend``) and falls back to the
+    windowed path — recording the reason on ``vm.resident_fallback`` — for
+    graph constructs the fused loop cannot express yet.  The resident launch
     already interleaves every request in one pipeline, so ``replicas`` does
     not apply (the placement still sizes the device rings).
 
     ``bucket_sizes`` (resident only, opt-in) pads the launch up to the next
     configured bucket by replaying the last request into the pad slots, so
-    many batch sizes share one cached :class:`DeviceProgram` jit trace
-    instead of compiling per exact shape — the bucketed-warmup treatment the
-    windowed jax engine already has.  Pad slots do real (discarded) work, so
-    the aggregate launch stats include them; per-request slices are
-    unaffected.  ``"auto"`` selects
+    many batch sizes share one cached :class:`DeviceProgram` capture
+    instead of capturing per exact shape — the bucketed warm-up the
+    serving engine's windowed batches already have.  Pad slots do real
+    (discarded) work, so the aggregate launch stats include them;
+    per-request slices are unaffected.  ``"auto"`` selects
     :data:`~repro_torch.core.device_vm.RESIDENT_BUCKETS`."""
     inits = [arrays for arrays, _scalars in requests]
     params = [{k: int(v) for k, v in scalars.items()}
@@ -536,8 +542,8 @@ def run_fused(result: CompileResult, backend, requests: Sequence[tuple],
         if not be.supports_resident:
             raise ValueError(
                 f"execution='resident': backend {be.name!r} has no "
-                "resident path (the numpy oracle stays windowed; the "
-                "port's resident loop is ROADMAP Queue 1 item 1)")
+                "resident path (the numpy oracle stays windowed; use "
+                "backend='torch')")
         from .core.device_vm import bucket_launch_size, resident_unsupported
         reasons = resident_unsupported(result.dfg)
         if not reasons:
@@ -1247,7 +1253,7 @@ def program(fn: Callable | None = None, *, outputs: dict,
     ``backend``, and ``pipeline`` (a textual pass-pipeline spec, see
     DESIGN.md §6) set per-function defaults, overridable per call;
     ``execution="resident"`` makes every run of the program take the
-    one-launch device path (DESIGN.md §9, jax backends).
+    resident device path (DESIGN.md §9, ``TorchBackend``).
     """
     def wrap(f: Callable) -> ProgramFn:
         return ProgramFn(f, outputs=outputs, statics=statics, name=name,

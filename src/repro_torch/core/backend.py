@@ -271,8 +271,8 @@ class ExecutorBackend:
 
     name = "abstract"
 
-    #: whether :meth:`compile_resident` is implemented (DESIGN.md §9); no
-    #: backend of this package has the fused-launch path yet
+    #: whether :meth:`compile_resident` is implemented (DESIGN.md §9):
+    #: :class:`TorchBackend` has it, the numpy oracle does not
     supports_resident = False
 
     # -- whole-program compile ---------------------------------------------
@@ -376,10 +376,11 @@ class TorchBackend(ExecutorBackend):
     ``device=None`` means ``"cuda"``; a host without CUDA raises instead of
     falling back to the CPU.  ``device="cpu"`` runs the kernels' plain torch
     versions (the tests use it).  ``name`` carries the device type, so the
-    compile cache keeps the two apart.
+    compile cache keeps the two apart.  :meth:`compile_resident` builds the
+    resident form (``core/device_vm.py``) on the same device.
     """
 
-    supports_resident = False
+    supports_resident = True
 
     def __init__(self, device=None):
         import torch                     # deferred: numpy backend stays light
@@ -393,6 +394,14 @@ class TorchBackend(ExecutorBackend):
                 "torch path")
         self.device = dev
         self.name = f"torch[{dev.type}]"
+
+    def compile_resident(self, result, placement=None, **kwargs):
+        from .device_vm import DeviceProgram
+        dfg = getattr(result, "dfg", result)
+        dp = DeviceProgram(dfg, placement=placement, device=self.device,
+                           **kwargs)
+        dp.backend = self
+        return dp
 
     def binop(self, op, a, b):
         return self._ops.vm_binop(op, a, b, device=self.device)

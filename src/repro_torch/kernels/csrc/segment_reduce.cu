@@ -421,9 +421,142 @@ cudaError_t launch(const int* kinds, const int* vals, long long n, int init,
   return cudaGetLastError();
 }
 
+// The device-carry entry, for a window inside a captured tick loop: at
+// most kTile lanes (one block), the valid count n, the carry (acc, o) and a
+// request id per token all read from the device, so that nothing of the
+// call is a host value.  Each emitted token carries the rid of the barrier
+// that emits it.  out: out_kinds [2w], out_vals [2w], out_rids [2w] (the
+// emitted tokens, then zeros), count; the carry is written back in place
+// after every thread has read it.  With n = 0 the tile's aggregate is the
+// identity, so the carry comes back unchanged.  Emissions go straight to
+// global memory at their slots: a window of the apps emits at most 256.
+template <int Op>
+static __global__ void __launch_bounds__(kThreads) segred_carry_kernel(
+    const int* __restrict__ kinds, const int* __restrict__ vals,
+    const int* __restrict__ rids, const int* __restrict__ n_ptr, int w,
+    int init, int* __restrict__ carry, int* __restrict__ out) {
+  __shared__ Agg warp_tot[kWarps], warp_ex[kWarps], s_tile_agg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int local0 = threadIdx.x * kScanItems;
+  const int n = min(max(*n_ptr, 0), w);
+  const State in{carry[0], carry[1] != 0 ? 1 : 0, 0};
+  const int left = n - local0;
+  const int nv = left <= 0 ? 0 : left >= kScanItems ? kScanItems : left;
+  int k[kScanItems], x[kScanItems], r[kScanItems];
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const bool live = i < nv;
+    k[i] = live ? kinds[local0 + i] : 0;
+    x[i] = live && vals != nullptr ? vals[local0 + i] : identity<Op>();
+    r[i] = live ? rids[local0 + i] : 0;
+  }
+  Agg mine = ident_agg<Op>();                    // as in segred_kernel
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    if (i >= nv) continue;
+    const bool bar = k[i] > 0;
+    const bool em = k[i] == 1 || (mine.f & kH);
+    const bool first = bar && !(mine.f & kHB);
+    mine.cnt += bar ? (em ? 1 : 0) + (k[i] > 1 ? 1 : 0) : 0;
+    mine.f = bar ? (mine.f & (kD | kEI)) | kHB | (first && !em ? kD : 0) |
+                       (em ? kEI : 0)
+                 : mine.f | kH;
+    mine.a = bar ? identity<Op>() : combine<Op>(mine.a, x[i]);
+  }
+  Agg incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Agg y = shfl_up(incl, o);
+    if (lane >= o) incl = compose<Op>(y, incl);
+  }
+  Agg lane_ex = shfl_up(incl, 1);
+  if (lane == 0) lane_ex = ident_agg<Op>();
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    Agg t = lane < kWarps ? warp_tot[lane] : ident_agg<Op>();
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const Agg y = shfl_up(t, o);
+      if (lane >= o) t = compose<Op>(y, t);
+    }
+    Agg ex = shfl_up(t, 1);
+    if (lane == 0) ex = ident_agg<Op>();
+    if (lane < kWarps) warp_ex[lane] = ex;
+    if (lane == kWarps - 1) s_tile_agg = t;
+  }
+  __syncthreads();
+  const State after = apply<Op>(s_tile_agg, in, init);
+  const long long w2 = 2 * static_cast<long long>(w);
+  int* out_k = out;
+  int* out_v = out + w2;
+  int* out_r = out + 2 * w2;
+  zero_fill(out_k, after.slots, w2, threadIdx.x, kThreads);
+  zero_fill(out_v, after.slots, w2, threadIdx.x, kThreads);
+  zero_fill(out_r, after.slots, w2, threadIdx.x, kThreads);
+  State s = apply<Op>(lane_ex, apply<Op>(warp_ex[warp], in, init), init);
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {         // the sequential machine
+    if (i >= nv) continue;
+    const bool bar = k[i] > 0;
+    const bool emit = bar && (k[i] == 1 || s.o);
+    const bool lower = k[i] > 1;
+    if (emit) out_k[s.slots] = 0, out_v[s.slots] = s.v, out_r[s.slots] = r[i];
+    const int q = s.slots + (emit ? 1 : 0);
+    if (lower) out_k[q] = k[i] - 1, out_v[q] = 0, out_r[q] = r[i];
+    s.slots = q + (lower ? 1 : 0);
+    s.v = bar ? (emit ? init : s.v) : combine<Op>(s.v, x[i]);
+    s.o = bar ? 0 : 1;
+  }
+  if (threadIdx.x == 0) {                        // every thread read carry
+    out[3 * w2] = after.slots;                   // before the first barrier
+    carry[0] = after.v;
+    carry[1] = after.o;
+  }
+}
+
+template <int Op>
+cudaError_t launch_carry(const int* kinds, const int* vals, const int* rids,
+                         const int* n, int w, int init, int* carry, int* out,
+                         cudaStream_t s) {
+  segred_carry_kernel<Op><<<1, kThreads, 0, s>>>(kinds, vals, rids, n, w,
+                                                 init, carry, out);
+  return cudaGetLastError();
+}
+
 }  // namespace repro
 
 extern "C" int segment_reduce_tile_rows() { return repro::kTile; }
+
+// The device-carry entry.  kinds, rids [w] and vals [w] (or null), w <=
+// kTile; n: one int (the valid lanes, clamped to [0, w]); carry: two ints
+// (acc, group_open), updated in place; out: 6w + 1 ints (out_kinds,
+// out_vals, out_rids [2w] each, then count).  Returns cudaGetLastError()
+// after the launch; cudaErrorInvalidValue for w outside [1, kTile].
+extern "C" int segment_reduce_carry_launch(const void* kinds,
+                                           const void* vals, const void* rids,
+                                           const void* n, int w, int op,
+                                           int init, void* carry, void* out,
+                                           void* stream) {
+  using namespace repro;
+  if (w < 1 || w > kTile) return cudaErrorInvalidValue;
+  const int* k = static_cast<const int*>(kinds);
+  const int* v = static_cast<const int*>(vals);
+  const int* r = static_cast<const int*>(rids);
+  const int* nn = static_cast<const int*>(n);
+  int* c = static_cast<int*>(carry);
+  int* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kAdd: return launch_carry<kAdd>(k, v, r, nn, w, init, c, o, s);
+    case kMin: return launch_carry<kMin>(k, v, r, nn, w, init, c, o, s);
+    case kMax: return launch_carry<kMax>(k, v, r, nn, w, init, c, o, s);
+    case kAnd: return launch_carry<kAnd>(k, v, r, nn, w, init, c, o, s);
+    case kOr: return launch_carry<kOr>(k, v, r, nn, w, init, c, o, s);
+    case kXor: return launch_carry<kXor>(k, v, r, nn, w, init, c, o, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // out: 4n + 3 ints (out_kinds [2n], out_vals [2n], count, carry (v, o)).
 // scratch: 2 * ceil(n / kTile) + 1 u64 when n > kTile, else unused (may be

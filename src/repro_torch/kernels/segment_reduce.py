@@ -21,6 +21,11 @@ is one block; a longer one walks tiles of that many tokens, each taking its
 predecessors' state (the carry so far and the tokens emitted so far) by a
 decoupled look-back, after one memset of the tiles' status words.  Its
 output is one int32 buffer (:func:`segment_reduce_flat`).
+
+:func:`segment_reduce_carry` is the device-carry entry of the resident
+loop (``core/device_vm.py``): one window of at most :data:`TILE_ROWS`
+lanes whose valid count, carry and request ids are all device tensors, so
+that a CUDA graph captures the call; the carry is written back in place.
 """
 from __future__ import annotations
 
@@ -133,6 +138,8 @@ def _lib() -> ctypes.CDLL:
     lib.segment_reduce_launch.argtypes = (
         [p, p, ctypes.c_longlong, i, i, i, i, p, p, p])
     lib.segment_reduce_launch.restype = ctypes.c_int
+    lib.segment_reduce_carry_launch.argtypes = [p, p, p, p, i, i, i, p, p, p]
+    lib.segment_reduce_carry_launch.restype = ctypes.c_int
     lib.segment_reduce_tile_rows.restype = ctypes.c_int
     _build.check_constant(lib.segment_reduce_tile_rows(), TILE_ROWS,
                           "segment_reduce", "TILE_ROWS")
@@ -196,5 +203,114 @@ def segment_reduce(kinds: torch.Tensor, vals: torch.Tensor | None,
     return flat[:n2], flat[n2:2 * n2], flat[2 * n2], flat[2 * n2 + 1:]
 
 
-#: kernel launches so far (CUDA calls only; the plain path does not count)
+#: kernel launches so far, of both entries (CUDA calls only; the plain path
+#: does not count; a replayed CUDA graph adds its captured launches per
+#: replay: ``core/device_vm.py``)
 segment_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the device-carry entry: one window of a resident tick loop
+# ---------------------------------------------------------------------------
+
+def _check_carry(kinds, vals, rids, n, op, carry) -> None:
+    _check(kinds, vals, op)
+    w = kinds.shape[0]
+    if not 1 <= w <= TILE_ROWS:
+        raise ValueError(f"segment_reduce_carry: a window of {w} lanes, "
+                         f"want 1..{TILE_ROWS}")
+    for name, t, shape in (("rids", rids, (w,)), ("n", n, ()),
+                           ("carry", carry, (2,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise TypeError(f"segment_reduce_carry: {name} must be int32 "
+                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != kinds.device or not t.is_contiguous():
+            raise ValueError(f"segment_reduce_carry: {name} must be "
+                             "contiguous and on the device of kinds")
+
+
+def segment_reduce_carry_plain(kinds, vals, rids, n, op, init, carry):
+    """Plain torch version of the device-carry kernel: the reference's
+    fixed-shape ``device_loop.segment_reduce_window`` (segments by a cumsum
+    of barriers, a fold into per-segment starts, two emission slots a
+    barrier, a compaction); same arguments and returns as
+    :func:`segment_reduce_carry`."""
+    _check_carry(kinds, vals, rids, n, op, carry)
+    w, dev = kinds.shape[0], kinds.device
+    lane = torch.arange(w, dtype=torch.int32, device=dev)
+    valid = lane < n
+    is_bar = (kinds > 0) & valid
+    is_data = (kinds == 0) & valid
+    bi = is_bar.int()
+    csum = torch.cumsum(bi, 0, dtype=torch.int32)
+    seg = csum - bi                         # barrier j closes segment j
+    nbar = csum[-1:]
+    # per-segment data count -> open flag; slot w + 1 takes dropped lanes
+    cnt = torch.zeros(w + 2, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, torch.where(is_data, seg, w + 1), is_data.int())
+    open_ = cnt[:w + 1] > 0
+    open_[0] |= carry[1] != 0
+    # barrier slots: slot j = the j-th barrier of the window (w: dropped)
+    bidx = torch.where(is_bar, csum - 1, w).long()
+    bk = torch.zeros(w + 1, dtype=torch.int32, device=dev).scatter_(
+        0, bidx, kinds)[:w]
+    brid = torch.zeros(w + 1, dtype=torch.int32, device=dev).scatter_(
+        0, bidx, rids)[:w]
+    live = lane < nbar
+    emit = ((bk == 1) | open_[:w]) & live
+    lower = (bk > 1) & live
+    before = torch.zeros(w + 1, dtype=torch.bool, device=dev)
+    before[1:] = torch.cumsum(emit.int(), 0) > 0
+    g = torch.where(before, init, carry[0].long()).long()
+    g = torch.cat([g, g.new_zeros(1)])
+    if vals is not None:     # a valueless reduce folds nothing
+        g = _fold(op, g, torch.where(is_data, seg, w + 1).long(),
+                  vals.long())
+    g = (((g - _I32_MIN) & 0xFFFFFFFF) + _I32_MIN).int()
+    new_acc = g.gather(0, nbar.long())
+    new_open = open_.gather(0, nbar.long()).int()
+    k2 = torch.stack([torch.where(emit, 0, NOTHING),
+                      torch.where(lower, bk - 1, NOTHING)], 1).reshape(-1)
+    v2 = torch.stack([torch.where(emit, g[:w], 0),
+                      torch.zeros_like(g[:w])], 1).reshape(-1)
+    r2 = torch.stack([brid, brid], 1).reshape(-1)
+    out, count = stream_compact_plain(
+        (k2 != NOTHING).int(), torch.stack([k2, v2, r2], 1).int())
+    carry.copy_(torch.cat([new_acc, new_open]))
+    return out[:, 0], out[:, 1], out[:, 2], count
+
+
+def segment_reduce_carry(kinds: torch.Tensor, vals: torch.Tensor | None,
+                         rids: torch.Tensor, n: torch.Tensor, op: str,
+                         init: int, carry: torch.Tensor):
+    """One reduce-output window of a resident tick loop, every input on the
+    device: kinds, rids [W] int32 (W <= :data:`TILE_ROWS`), vals [W] int32
+    or None, n a 0-d int32 (lanes ``[0, n)`` are valid), ``carry`` int32
+    ``[acc, group_open]`` -> ``(out_kinds, out_vals, out_rids [2W],
+    count)``, and ``carry`` updated in place.
+
+    Each emitted token carries the request id of the barrier that emits
+    it; the first ``count`` entries are the emissions, the rest zeros.  A
+    CUDA tensor launches the kernel's device-carry entry (one block, one
+    launch, no host value: a CUDA graph can capture it), a CPU tensor runs
+    :func:`segment_reduce_carry_plain`.  With ``n`` 0 the carry is left
+    as it was."""
+    if kinds.device.type == "cpu":
+        return segment_reduce_carry_plain(kinds, vals, rids, n, op, init,
+                                          carry)
+    _check_carry(kinds, vals, rids, n, op, carry)
+    if kinds.device.type != "cuda":
+        raise ValueError(f"segment_reduce: unsupported device {kinds.device}")
+    lib = _lib()
+    w = kinds.shape[0]
+    flat = torch.empty(6 * w + 1, dtype=torch.int32, device=kinds.device)
+    with torch.cuda.device(kinds.device):
+        err = lib.segment_reduce_carry_launch(
+            kinds.data_ptr(), None if vals is None else vals.data_ptr(),
+            rids.data_ptr(), n.data_ptr(), w, OPS.index(op), _i32(init),
+            carry.data_ptr(), flat.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    segment_reduce.launches += 1
+    _build.check(lib, "segment_reduce", err)
+    w2 = 2 * w
+    return flat[:w2], flat[w2:2 * w2], flat[2 * w2:3 * w2], flat[3 * w2]

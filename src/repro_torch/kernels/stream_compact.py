@@ -118,5 +118,7 @@ def stream_compact(mask: torch.Tensor, vals: torch.Tensor
     return flat[:n * d].view(n, d), flat[n * d]
 
 
-#: kernel launches so far (CUDA calls only; the plain path does not count)
+#: kernel launches so far (CUDA calls only; the plain path does not count;
+#: a replayed CUDA graph adds its captured launches per replay:
+#: ``core/device_vm.py``)
 stream_compact.launches = 0

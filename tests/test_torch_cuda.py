@@ -230,6 +230,59 @@ def test_cuda_torch_backend_runs_an_app_on_the_card(cuda_device):
     assert got.vm.stats == want.vm.stats
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", REDUCE_OPS)
+def test_cuda_segment_reduce_carry_matches_plain(cuda_device, op):
+    """The device-carry entry (n, carry and rids on the device) against its
+    plain version: every output word and the carry written back; n = 0
+    leaves the carry as it was."""
+    rng = np.random.default_rng(13)
+    for w in (1, 2, 127, 128, 256, 4096):
+        for t in range(8):
+            n = int(rng.integers(0, w + 1)) if t else 0
+            kinds, vals = _window(rng, w)
+            rids = rng.integers(0, 5, w)
+            carry0 = [int(rng.integers(I32_MIN, I32_MAX)), t % 2]
+            outs = []
+            for dev in ("cpu", cuda_device):
+                i32 = lambda a: torch.tensor(np.asarray(a, np.int32),
+                                             device=dev)
+                carry = i32(carry0)
+                got = tsr.segment_reduce_carry(
+                    i32(kinds), i32(vals) if t % 3 else None, i32(rids),
+                    i32(n).reshape(()), op, 4, carry)
+                outs.append([x.cpu() for x in got] + [carry.cpu()])
+            for g, want in zip(outs[1], outs[0]):
+                assert torch.equal(g, want), (w, n, op)
+            if n == 0:
+                assert outs[1][-1].tolist() == carry0
+
+
+@pytest.mark.cuda
+def test_cuda_resident_run_matches_the_oracle(cuda_device):
+    """One app through ``execution="resident"`` on the card: ticks replayed
+    from a captured CUDA graph, one host read a replay, both kernels
+    launched by the replays; DRAM, lane stats and ticks equal to the CPU
+    port's resident run."""
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.core.backend import TorchBackend
+    app = ALL_APPS["hash_table"]()
+    lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
+    want = lowered.compile(TorchBackend("cpu")).execute(
+        dict(app.dram_init), app.params, execution="resident")
+    before = (tsc.stream_compact.launches, tsr.segment_reduce.launches)
+    got = lowered.compile(TorchBackend()).execute(
+        dict(app.dram_init), app.params, execution="resident")
+    run = got.vm
+    assert got.report.execution == "resident" and run.form == "masked"
+    assert run.replays == run.host_reads > 0 and run.capture_s > 0
+    assert tsc.stream_compact.launches > before[0]
+    assert tsr.segment_reduce.launches > before[1]
+    for arr in want.dram:
+        np.testing.assert_array_equal(got.dram[arr], want.dram[arr])
+    assert got.report.stats == want.report.stats
+
+
 # ---------------------------------------------------------------------------
 # attention kernels (float32: 2e-5, bfloat16: 2e-2 — the tolerances of the
 # reference's kernel tests; the sums run in another order, and bfloat16

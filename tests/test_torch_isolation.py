@@ -49,7 +49,8 @@ def test_port_imports_without_jax_or_reference():
     assert len(walked) >= 30                      # every module was walked
     for mod in ("models.rglru", "kernels.rg_lru", "models.ssm",
                 "kernels.ssm_scan", "models.moe", "kernels.moe_dispatch",
-                "kernels.hash_probe", "serve.engine", "launch.serve"):
+                "kernels.hash_probe", "serve.engine", "launch.serve",
+                "core.device_vm", "kernels.device_loop", "core.primitives"):
         assert f"repro_torch.{mod}" in walked
 
 
@@ -60,7 +61,7 @@ def test_torch_backend_does_not_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_backend("torch")
     be = TorchBackend("cpu")
-    assert be.name == "torch[cpu]" and not be.supports_resident
+    assert be.name == "torch[cpu]" and be.supports_resident
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -87,23 +88,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_resident_execution_is_refused():
+    """The numpy oracle has no resident path: asking for one raises (the
+    port's ``TorchBackend`` has one, on the card and on the CPU)."""
     from repro_torch.apps import ALL_APPS
     app = ALL_APPS["murmur3"]()
     compiled = app.fn.lower(**app.dram_init, **app.params,
-                            **app.statics).compile(TorchBackend("cpu"))
+                            **app.statics).compile("numpy")
+    assert not make_backend("numpy").supports_resident
+    assert TorchBackend("cpu").supports_resident
     with pytest.raises(ValueError, match="no resident path"):
         compiled.execute_batch([(app.dram_init, app.params)],
                                execution="resident")
 
 
 def test_resident_refusal_points_at_the_ports_own_path():
-    """The refusal names the port's resident loop, not the JAX package's
-    backend (``make_backend("jax")`` raises in the port)."""
+    """The refusal names the port's backend, not the JAX package's
+    (``make_backend("jax")`` raises in the port)."""
     from repro_torch.apps import ALL_APPS
     app = ALL_APPS["murmur3"]()
     compiled = app.fn.lower(**app.dram_init, **app.params,
-                            **app.statics).compile(TorchBackend("cpu"))
-    with pytest.raises(ValueError, match="Queue 1 item 1") as err:
+                            **app.statics).compile("numpy")
+    with pytest.raises(ValueError, match="backend='torch'") as err:
         compiled.execute_batch([(app.dram_init, app.params)],
                                execution="resident")
     assert "jax" not in str(err.value)
@@ -111,16 +116,16 @@ def test_resident_refusal_points_at_the_ports_own_path():
         make_backend("jax")
 
 
-class _ResidentCPU(TorchBackend):
-    """A CPU ``TorchBackend`` that claims a resident path (only the engine's
-    bucket choice reads the flag here)."""
-    supports_resident = True
+class _WindowedCPU(TorchBackend):
+    """A CPU ``TorchBackend`` that claims no resident path (only the
+    engine's bucket choice reads the flag here)."""
+    supports_resident = False
 
 
 @pytest.mark.parametrize("backend,want", [
-    (lambda: TorchBackend("cpu"), None),
+    (lambda: TorchBackend("cpu"), (1, 2, 4, 8, 16, 32, 64)),
     (lambda: make_backend("numpy"), None),
-    (lambda: _ResidentCPU("cpu"), (1, 2, 4, 8, 16, 32, 64))])
+    (lambda: _WindowedCPU("cpu"), None)])
 def test_dataflow_buckets_follow_supports_resident(backend, want):
     """``bucket_sizes="auto"`` pads launches only on a backend with a
     resident path, whatever its name."""
