@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor, the
-hash probe, and dense-LM, SSM, hybrid and MoE serving) on one CUDA card and
-check it end to end.
+"""chip_smoke — drive the PyTorch port of Revet (the dataflow executor and its
+open-loop serving, the hash probe, and dense-LM, SSM, hybrid, MoE,
+encoder-decoder and VLM serving) on one CUDA card and check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -50,6 +50,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              replays, kernels per tick (the nodes of one captured block) and
              µs per tick; then ``DataflowEngine(compiled,
              execution="resident")`` serving 8 strlen requests.
+4c. async_serve — murmur3 and hash_table at ``BENCH_SIZES``: 32 open-loop
+             Poisson requests over two tenants at the measured batch-8
+             capacity (8 over the warm wall of one ``step_batch(8)``)
+             through ``AsyncServeEngine`` on the card, windowed (max_wave
+             8) and resident (buckets "auto", each captured by
+             ``warmup()``, none while serving), SLO 4x that wall; every
+             response equal to its instance's solo run on the oracle,
+             served + shed == submitted, nothing failed, degraded or sent
+             back to windowed; p50/p99, goodput at the SLO, launches by
+             bucket, mid-wave admissions; the executor kernels' launches
+             of each serving window alone (counted from 0 after
+             ``warmup()``), each > 0 in each mode; then one injected
+             resident launch fault (attempt 0 raises once), replayed equal.
 5. attention — the flash and decode attention kernels against their plain
              versions (float32 2e-5, bfloat16 2e-2) at the LM path's shapes
              (heads matched, and qwen2-0.5b's own 14 query heads on 2 kv
@@ -131,6 +144,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              over one 512-token prefill on the kernel route; then
              ``launch.serve.main`` for olmoe-1b-7b (reduced preset).
 
+14. encdec_lm — full-width, full-depth seamless-m4t-medium (random bf16
+             weights drawn on the card): one prefill of 2 x 1024 frames and
+             a 64-token prompt on the kernel route (36 flash launches: 12
+             encoder layers non-causal, 12 decoder self-attentions causal,
+             12 cross-attentions non-causal over the frames), 16 greedy
+             decode steps (cross-attention ``decode_mha(impl="ref")``, as
+             the reference); then every attention of the prefill held to
+             the plain route on the same input (8 bf16 steps); prefill ms,
+             decode ms/step, peak bytes, flash launches.
+15. vlm_lm — internvl2-1b the same way: 256 patch embeddings of 1024 and a
+             512-token prompt (24 flash launches over 768 positions).
+
 The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -148,20 +173,6 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
-
-# benchmark-scale app instances (the dict of benchmarks/common.py)
-BENCH_SIZES = {
-    "isipv4": dict(n_strings=256),
-    "ip2int": dict(n_strings=256),
-    "murmur3": dict(n_blobs=128),
-    "hash_table": dict(n_lookups=256, n_slots=1024),
-    "search": dict(n_chunks=32, chunk=256),
-    "huff_dec": dict(n_threads=16, syms_per_thread=128),
-    "huff_enc": dict(n_threads=16, syms_per_thread=128),
-    "kdtree": dict(n_points=2048, n_queries=64),
-    "strlen": dict(n_strings=128, avg_len=32),
-}
-HASH_TABLE_16X = dict(n_lookups=4096, n_slots=16384)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -293,60 +304,6 @@ def graph_ms(fn, iters: int, reps: int = 5, check=None) -> float:
     if check is not None:
         check(out)
     return start.elapsed_time(end) / (iters * reps)
-
-
-_CU_NODE_KERNEL, _CU_NODE_MEMCPY, _CU_NODE_MEMSET = 0, 1, 2  # CUgraphNodeType
-
-
-def graph_nodes(fn) -> dict:
-    """The kernel, memset and copy nodes that one call of ``fn`` records in
-    a CUDA graph, read from the captured graph through the driver
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  The call is captured,
-    not run; the graph is freed at once.  Exact where a torch.profiler
-    window is not: on the card's torch a window lost events of the kernels
-    launched from this repo's ctypes libraries (15 of 16 hash_probe calls
-    seen, none of the device-carry entry's)."""
-    import ctypes
-    import torch
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(rc, what):
-        require(rc == 0, f"{what} returned CUresult {rc}")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    kinds = []
-    for node in nodes[:n.value]:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                    ctypes.byref(kind)), "cuGraphNodeGetType")
-        kinds.append(kind.value)
-    graph.reset()
-    return {"kernels": kinds.count(_CU_NODE_KERNEL),
-            "memsets": kinds.count(_CU_NODE_MEMSET),
-            "copies": kinds.count(_CU_NODE_MEMCPY)}
-
-
-def launches_per_call(fn) -> dict:
-    """CUDA kernels, memsets and copies that one call of ``fn`` puts on the
-    card: the nodes of one captured call (``graph_nodes``), after a warm
-    call off the capture."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    return graph_nodes(fn)
-
-
-ONE_KERNEL = {"kernels": 1, "memsets": 0, "copies": 0}
 
 
 def library_graph(fn, iters: int, what: str) -> dict:
@@ -600,6 +557,7 @@ def time_kernels(dev, sc, sr, rng):
     taken out, the replay held to the plain version); the kernels, memsets
     and copies a call puts on the card (``launches_per_call``); a library
     call beside each, eager and, where it can be captured, from a graph."""
+    from repro_torch.kernels import graph_count as graphs
     import numpy as np
     import torch
     rows = {}
@@ -621,7 +579,7 @@ def time_kernels(dev, sc, sr, rng):
                    lambda: sc.stream_compact(mask, vals), iters),
                "kernel_graph_ms": graph_ms(
                    lambda: sc.stream_compact(mask, vals), iters, check=same),
-               "kernels_per_call": launches_per_call(
+               "kernels_per_call": graphs.launches_per_call(
                    lambda: sc.stream_compact(mask, vals)),
                "plain_ms": time_ms(
                    lambda: sc.stream_compact_plain(mask, vals), iters),
@@ -661,7 +619,7 @@ def time_kernels(dev, sc, sr, rng):
                        _same_segred(got, want),
                        f"segment_reduce replayed differs from plain at "
                        f"n={n}")),
-               "kernels_per_call": launches_per_call(
+               "kernels_per_call": graphs.launches_per_call(
                    lambda: sr.segment_reduce(kinds, vals)),
                "plain_ms": time_ms(
                    lambda: sr.segment_reduce_plain(kinds, vals), iters),
@@ -698,7 +656,7 @@ def time_kernels(dev, sc, sr, rng):
                               for g, x in zip(got[:3], want[:3])),
            "kernel_ms": time_ms(call, 300),
            "kernel_graph_ms": graph_ms(call, 300),
-           "kernels_per_call": launches_per_call(call),
+           "kernels_per_call": graphs.launches_per_call(call),
            "plain_ms": time_ms(lambda: sr.segment_reduce_carry_plain(
                kinds, vals, rids, n, "add", 0, carry.clone()), 100),
            "library_ms": None,
@@ -711,14 +669,14 @@ def time_kernels(dev, sc, sr, rng):
           "entry": "device_carry", **rec})
     for name, rec in rows.items():
         per = rec["path"]["kernels_per_call"]
-        require(per == ONE_KERNEL,
+        require(per == graphs.ONE_KERNEL,
                 f"{name} at N = 128 puts {per} on the card, not one kernel")
         per = rec["large"]["kernels_per_call"]
         require(per["kernels"] == 1 and per["memsets"] <= 2 and
                 not per["copies"],
                 f"{name} at N = 2^24 puts {per} on the card")
     per = rows["segment_reduce"]["device_carry"]["kernels_per_call"]
-    require(per == ONE_KERNEL, f"the device-carry entry at {w} lanes puts "
+    require(per == graphs.ONE_KERNEL, f"the device-carry entry at {w} lanes puts "
             f"{per} on the card, not one kernel")
     torch.cuda.synchronize()
     return rows
@@ -727,29 +685,6 @@ def time_kernels(dev, sc, sr, rng):
 # ---------------------------------------------------------------------------
 # phase 3: the apps on the card against the numpy oracle
 # ---------------------------------------------------------------------------
-
-def _launches():
-    from repro_torch.kernels.segment_reduce import segment_reduce
-    from repro_torch.kernels.stream_compact import stream_compact
-    return {"stream_compact": stream_compact.launches,
-            "segment_reduce": segment_reduce.launches}
-
-
-def _reset_launches():
-    from repro_torch.kernels.segment_reduce import segment_reduce
-    from repro_torch.kernels.stream_compact import stream_compact
-    stream_compact.launches = 0
-    segment_reduce.launches = 0
-
-
-def _same_run(name, ex_np, ex_t):
-    for arr in ex_np.dram:
-        require(ex_np.dram[arr].shape == ex_t.dram[arr].shape and
-                (ex_np.dram[arr] == ex_t.dram[arr]).all(),
-                f"{name}: dram '{arr}' differs from the numpy oracle")
-    require(ex_np.vm.stats == ex_t.vm.stats,
-            f"{name}: stats differ from the numpy oracle")
-
 
 _PRIMITIVES = ("binop", "neg", "logical_not", "select", "compact",
                "lower_barriers", "segment_reduce", "data_run",
@@ -780,15 +715,16 @@ def counting_backend():
 
 
 def _run_app(name, app, tb):
+    from repro_torch.serve import traffic as tr
     from repro_torch.apps.common import check_app
     from repro_torch.core.backend import NumpyBackend
     lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
     ex_np = lowered.compile(NumpyBackend()).execute(dict(app.dram_init),
                                                     app.params)
-    before, calls = _launches(), tb.calls
+    before, calls = tr.executor_launches(), tb.calls
     ex_t = lowered.compile(tb).execute(dict(app.dram_init), app.params)
-    after, calls = _launches(), tb.calls - calls
-    _same_run(name, ex_np, ex_t)
+    after, calls = tr.executor_launches(), tb.calls - calls
+    tr.same_run(name, ex_np, ex_t)
     check_app(app, ex_t.dram)
     rec = {"phase": "apps", "app": name, "match": True,
            "torch_cuda_wall_s": ex_t.report.wall_s,
@@ -867,22 +803,23 @@ def device_time(prof, wall_s: float, what: str, kernel: str = "") -> dict:
 
 
 def phase_apps(tb):
+    from repro_torch.serve import traffic as tr
     from repro_torch.apps import ALL_APPS
     t0 = time.perf_counter()
-    _reset_launches()
-    walls = {name: _run_app(name, ALL_APPS[name](**BENCH_SIZES[name]), tb)
-             for name in sorted(BENCH_SIZES)}
+    tr.reset_executor_launches()
+    walls = {name: _run_app(name, ALL_APPS[name](**tr.BENCH_SIZES[name]), tb)
+             for name in sorted(tr.BENCH_SIZES)}
     walls["hash_table_16x"] = _run_app(
-        "hash_table_16x", ALL_APPS["hash_table"](**HASH_TABLE_16X), tb)
-    launches = _launches()
+        "hash_table_16x", ALL_APPS["hash_table"](**tr.HASH_TABLE_16X), tb)
+    launches = tr.executor_launches()
     for k, v in launches.items():
         require(v > 0, f"the apps never launched the {k} kernel")
-    emit({"phase": "apps", "apps": len(BENCH_SIZES) + 1, "launches": launches,
+    emit({"phase": "apps", "apps": len(tr.BENCH_SIZES) + 1, "launches": launches,
           "seconds": time.perf_counter() - t0})
     # device busy share of every app, from one more run each under the
     # profiler (after the counts are read, so they hold one run per app)
-    for name in sorted(BENCH_SIZES):
-        emit(device_busy(name, ALL_APPS[name](**BENCH_SIZES[name]), tb))
+    for name in sorted(tr.BENCH_SIZES):
+        emit(device_busy(name, ALL_APPS[name](**tr.BENCH_SIZES[name]), tb))
     return launches, walls
 
 
@@ -890,29 +827,17 @@ def phase_apps(tb):
 # phase 4: serving
 # ---------------------------------------------------------------------------
 
-def _pad_inputs(apps) -> None:
-    """Zero-pad each input array to its longest length across ``apps``, so
-    that instances built from different seeds share one compiled shape (a
-    string blob's trailing zeros are never read)."""
-    import numpy as np
-    for arr in apps[0].dram_init:
-        width = max(len(a.dram_init[arr]) for a in apps)
-        for a in apps:
-            v = np.asarray(a.dram_init[arr])
-            a.dram_init[arr] = np.concatenate(
-                [v, np.zeros(width - len(v), v.dtype)])
-
-
 def phase_serve(tb):
+    from repro_torch.serve import traffic as tr
     from repro_torch import revet
     from repro_torch.apps import ALL_APPS
     from repro_torch.apps.common import check_app
     from repro_torch.core.vector_vm import VLEN, ReplicatedVectorVM
     from repro_torch.serve.dataflow import DataflowEngine, DataflowRequest
-    _reset_launches()
+    tr.reset_executor_launches()
     for name in ("strlen", "hash_table"):
         apps = [ALL_APPS[name](seed=s) for s in range(8)]
-        _pad_inputs(apps)
+        tr.pad_inputs(apps)
         app = apps[0]
         lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
         engines = {"torch": DataflowEngine(lowered.compile(tb)),
@@ -938,7 +863,7 @@ def phase_serve(tb):
     # one placed, replicated fused launch over requests from distinct seeds,
     # so a request routed to the wrong rid, lane or DRAM slice shows
     apps = [ALL_APPS["murmur3"](seed=s) for s in range(8)]
-    _pad_inputs(apps)
+    tr.pad_inputs(apps)
     app = apps[0]
     opts = revet.CompileOptions(place=True)
     kw = dict(**app.dram_init, **app.params, **app.statics)
@@ -961,7 +886,7 @@ def phase_serve(tb):
         require(repl.vm.request_stats(r) == base.vm.request_stats(r),
                 f"replicated murmur3 rid={r}: stats differ")
         check_app(apps[r], er.dram)
-    launches = _launches()
+    launches = tr.executor_launches()
     for k, v in launches.items():
         require(v > 0, f"serving never launched the {k} kernel")
     emit({"phase": "serve", "app": "murmur3", "replicas": reps,
@@ -975,31 +900,12 @@ def phase_serve(tb):
 # ---------------------------------------------------------------------------
 
 def _resident_instances():
+    from repro_torch.serve import traffic as tr
     from repro_torch.apps import ALL_APPS
-    out = {name: ALL_APPS[name](**BENCH_SIZES[name])
-           for name in sorted(BENCH_SIZES)}
-    out["hash_table_16x"] = ALL_APPS["hash_table"](**HASH_TABLE_16X)
+    out = {name: ALL_APPS[name](**tr.BENCH_SIZES[name])
+           for name in sorted(tr.BENCH_SIZES)}
+    out["hash_table_16x"] = ALL_APPS["hash_table"](**tr.HASH_TABLE_16X)
     return out
-
-
-def _same_resident(name, got, want):
-    """DRAM (of each request of a batch) and the aggregate lane stats of a
-    resident run equal the oracle's."""
-    from repro_torch.core.vector_vm import LANE_STATS
-    require(got.report.execution == "resident",
-            f"{name}: the resident run fell back to windowed "
-            f"({getattr(got.vm, 'resident_fallback', None)})")
-    pairs = (list(zip(got, want)) if hasattr(got, "executions")
-             else [(got, want)])
-    for rid, (g, w) in enumerate(pairs):
-        for arr in w.dram:
-            require(w.dram[arr].shape == g.dram[arr].shape and
-                    (w.dram[arr] == g.dram[arr]).all(),
-                    f"{name} rid={rid}: resident dram '{arr}' differs "
-                    "from the oracle")
-    lane = lambda st: {k: int(st.get(k, 0)) for k in LANE_STATS}
-    require(lane(got.report.stats) == lane(want.report.stats),
-            f"{name}: resident lane stats differ from the oracle")
 
 
 def _graph_per_tick(dp) -> dict:
@@ -1008,11 +914,12 @@ def _graph_per_tick(dp) -> dict:
     (CUDA events over replays of the program's own graph), per tick.  The
     masked form issues every kernel of a tick whatever the state, so a
     replay after the run measures what each of the run's replays issued."""
+    from repro_torch.kernels import graph_count as graphs
     import torch
     from repro_torch.core import device_vm
     k = dp.ticks_per_replay
     counts = [kern.launches for kern in device_vm._KERNELS]
-    nodes = graph_nodes(lambda: dp._block(dp._st, dp.form))
+    nodes = graphs.graph_nodes(lambda: dp._block(dp._st, dp.form))
     for kern, n in zip(device_vm._KERNELS, counts):
         kern.launches = n
     reps = 10
@@ -1035,6 +942,7 @@ def phase_resident(tb, windowed_walls):
     replayed ticks; murmur3's and hash_table's ticks equal the CPU port's;
     ``DataflowEngine(compiled, execution="resident")`` serving 8 strlen
     requests from distinct seeds."""
+    from repro_torch.serve import traffic as tr
     from repro_torch.apps import ALL_APPS
     from repro_torch.apps.common import check_app
     from repro_torch.core.backend import NumpyBackend, TorchBackend
@@ -1043,17 +951,17 @@ def phase_resident(tb, windowed_walls):
     t0 = time.perf_counter()
     cpu = TorchBackend("cpu")
     calls0 = tb.calls
-    _reset_launches()
+    tr.reset_executor_launches()
     for name, app in _resident_instances().items():
         lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
         compiled = lowered.compile(tb)
         want = lowered.compile(NumpyBackend()).execute(dict(app.dram_init),
                                                        app.params)
-        before = _launches()
+        before = tr.executor_launches()
         got = compiled.execute(dict(app.dram_init), app.params,
                                execution="resident")
-        after = _launches()
-        _same_resident(name, got, want)
+        after = tr.executor_launches()
+        tr.same_resident(name, got, want)
         check_app(app, got.dram)
         run = got.vm
         require(isinstance(run, DeviceRun) and run.host_reads == run.replays,
@@ -1091,11 +999,11 @@ def phase_resident(tb, windowed_walls):
         br = compiled.execute_batch(reqs, execution="resident")
         rec["batch3_wall_s"] = time.perf_counter() - t1
         rec["batch3_ticks"] = br.report.stats["ticks"]
-        _same_resident(f"{name} batch of 3", br, bw)
+        tr.same_resident(f"{name} batch of 3", br, bw)
         emit(rec)
     # served: DataflowEngine batches as resident runs (pow2 buckets)
     apps = [ALL_APPS["strlen"](seed=s) for s in range(8)]
-    _pad_inputs(apps)
+    tr.pad_inputs(apps)
     app = apps[0]
     lowered = app.fn.lower(**app.dram_init, **app.params, **app.statics)
     eng = DataflowEngine(lowered.compile(tb), execution="resident")
@@ -1116,7 +1024,7 @@ def phase_resident(tb, windowed_walls):
             require((b.dram[arr] == w.dram[arr]).all(),
                     f"strlen rid={b.rid}: served resident '{arr}' differs")
         check_app(a, b.dram)
-    launches = _launches()
+    launches = tr.executor_launches()
     require(tb.calls == calls0,
             f"the resident phase made {tb.calls - calls0} windowed backend "
             "calls")
@@ -1127,6 +1035,78 @@ def phase_resident(tb, windowed_walls):
           "requests_per_s": 8 / wall, "match": True,
           "launches": launches, "seconds": time.perf_counter() - t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: open-loop serving through AsyncServeEngine
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 32
+SERVE_APPS = ("murmur3", "hash_table")
+
+
+def phase_async_serve(tb):
+    """murmur3 and hash_table at ``BENCH_SIZES`` on the card: 32 open-loop
+    Poisson requests over two tenants at the measured batch-8 capacity
+    through ``AsyncServeEngine``, windowed (max_wave 8) and resident
+    (buckets "auto", every bucket captured by ``warmup()`` and none while
+    serving), each response equal to the oracle's solo run, no request
+    lost, failed, degraded or sent back to windowed; then one resident
+    launch fault (the first attempt raises) whose replay must be equal.
+    The executor kernels' launches are counted over each serving window
+    alone (``traffic.drive_async``: from 0 after ``warmup()``), summed per
+    mode over the two apps, and each must be > 0 in each mode."""
+    from repro_torch.serve import traffic as tr
+    from repro_torch.distributed.fault_tolerance import SimulatedFault
+    t0 = time.perf_counter()
+    by_mode = {m: dict.fromkeys(tr.executor_launches(), 0)
+               for m in ("windowed", "resident")}
+    for name in SERVE_APPS:
+        apps, lowered, solos = tr.serve_instances(name, tr.BENCH_SIZES[name])
+        compiled = lowered.compile(tb)
+        t_launch = tr.batch8_wall(compiled, apps)
+        capacity = tr.SERVE_BATCH / t_launch
+        slo_s = tr.SERVE_SLO_MULT * t_launch
+        sched = tr.poisson(SERVE_REQUESTS, capacity, SEED)
+        for execution in ("windowed", "resident"):
+            d = tr.drive_async(compiled, apps, solos, sched, slo_s,
+                               execution)
+            tr.require_clean(name, d, execution)
+            for k, v in d["launches"].items():
+                by_mode[execution][k] += v
+            emit({"phase": "async_serve", "app": name, "mode": execution,
+                  "t_launch8_s": t_launch, "capacity_rps": capacity,
+                  "slo_s": slo_s, "warmed": d["warmed"],
+                  "warmup_s": d["warmup_s"], "launches": d["launches"],
+                  **tr.rate_cell(d, slo_s, capacity, SERVE_REQUESTS),
+                  **tr.async_summary(d)})
+        # one injected fault: the first resident launch attempt raises
+        fired = []
+
+        def hook(attempt, mode, reqs):
+            if attempt == 0 and not fired:
+                fired.append(len(reqs))
+                raise SimulatedFault(f"{mode} launch of {len(reqs)} lost")
+
+        d = tr.drive_async(compiled, apps, solos, [0.0] * tr.SERVE_BATCH,
+                           slo_s, "resident", fault_hook=hook)
+        st = d["stats"]
+        require(fired and st["supervisor_retries"] == 1
+                and st["supervisor_failures"] == 1 and not st["degraded"]
+                and st["resident_fallbacks"] == 0
+                and d["executions"] == ["resident"],
+                f"{name}: the injected fault was not replayed resident: "
+                f"{tr.async_summary(d)}")
+        emit({"phase": "async_serve", "app": name, "fault": "resident "
+              "attempt 0 raised once; replayed", "match": True,
+              "launches": d["launches"], **tr.async_summary(d)})
+    for mode, launches in by_mode.items():
+        for k, v in launches.items():
+            require(v > 0, f"async {mode} serving never launched the {k} "
+                    "kernel")
+    emit({"phase": "async_serve", "launches_by_mode": by_mode,
+          "seconds": time.perf_counter() - t0})
+    return by_mode
 
 
 # ---------------------------------------------------------------------------
@@ -1335,7 +1315,8 @@ def _lm_launches():
 
 
 def _reset_all_launches():
-    _reset_launches()
+    from repro_torch.serve import traffic as tr
+    tr.reset_executor_launches()
     for fn in _lm_kernels().values():
         fn.launches = 0
 
@@ -1460,6 +1441,7 @@ def lm_profile(zoo, params, reqs) -> dict:
 
 
 def phase_lm():
+    from repro_torch.serve import traffic as tr
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1478,7 +1460,7 @@ def phase_lm():
     torch.cuda.reset_peak_memory_stats()
     _reset_all_launches()
     reqs, eng, wall = _serve(zoo, params)
-    served = {**_launches(), **_lm_launches()}
+    served = {**tr.executor_launches(), **_lm_launches()}
     require(eng.impl == "kernel", f"DecodeEngine's default is {eng.impl}")
     require(served["flash_attention"] == LM_REQUESTS * cfg.n_layers,
             f"flash_attention launched {served['flash_attention']} times, "
@@ -1496,7 +1478,7 @@ def phase_lm():
                for i in range(cfg.n_layers)]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches = {**_launches(), **_lm_launches()}
+    launches = {**tr.executor_launches(), **_lm_launches()}
     require(launches["decode_attention"] == cfg.n_layers,
             "decode_mha(impl='kernel') did not launch once per layer")
     tokens = sum(len(r.tokens) for r in reqs)
@@ -1614,16 +1596,17 @@ def scan_kernels_per_call(dev) -> dict:
     """The kernels, memsets and copies one call of each scan kernel puts on
     the card at its path shape (``launches_per_call``), which must be one
     kernel and nothing else.  Taken before the other phases."""
+    from repro_torch.kernels import graph_count as graphs
     import torch
     from repro_torch.kernels import rg_lru as rg
     from repro_torch.kernels import ssm_scan as sc
     gen = torch.Generator(dev).manual_seed(SEED + 9)
     ssm_ins = _ssm_inputs(gen, *SSM_PATH, True, dev)
     rg_ins = _rg_inputs(gen, *RG_PATH, True, dev)
-    out = {"ssm_scan": launches_per_call(lambda: sc.ssm_scan(*ssm_ins)),
-           "rg_lru": launches_per_call(lambda: rg.rg_lru(*rg_ins))}
+    out = {"ssm_scan": graphs.launches_per_call(lambda: sc.ssm_scan(*ssm_ins)),
+           "rg_lru": graphs.launches_per_call(lambda: rg.rg_lru(*rg_ins))}
     for name, per in out.items():
-        require(per == ONE_KERNEL,
+        require(per == graphs.ONE_KERNEL,
                 f"{name} at its path shape puts {per} on the card, not one "
                 "kernel")
     return out
@@ -2476,17 +2459,19 @@ def hash_kernels_per_call(dev) -> dict:
     and nothing else.  Counted before the other phases, as
     ``scan_kernels_per_call``, on inputs of those shapes that are freed at
     once."""
+    from repro_torch.kernels import graph_count as graphs
+    from repro_torch.serve import traffic as tr
     import torch
     from repro_torch.apps import ALL_APPS
     from repro_torch.kernels import hash_probe as hp
     gen = torch.Generator(dev).manual_seed(SEED + 12)
-    app = ALL_APPS["hash_table"](**HASH_TABLE_16X)
+    app = ALL_APPS["hash_table"](**tr.HASH_TABLE_16X)
     out = {}
     for label, q, tk, tv, n_slots in _hash_timing_shapes(gen, app, dev):
         def call():
             return hp.hash_probe(q, tk, tv, n_slots)
-        per = launches_per_call(call)
-        require(per == ONE_KERNEL,
+        per = graphs.launches_per_call(call)
+        require(per == graphs.ONE_KERNEL,
                 f"hash_probe at {label} puts {per} on the card, not one "
                 "kernel")
         out[label] = per
@@ -2495,14 +2480,15 @@ def hash_kernels_per_call(dev) -> dict:
 
 
 def phase_hash_kernel(dev, per_call):
+    from repro_torch.serve import traffic as tr
     import numpy as np
     import torch
     from repro_torch.apps import ALL_APPS
     from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import ops
     # -- the path: the entry point over the hash_table app's own tables
-    apps = {"bench": ALL_APPS["hash_table"](**BENCH_SIZES["hash_table"]),
-            "16x": ALL_APPS["hash_table"](**HASH_TABLE_16X)}
+    apps = {"bench": ALL_APPS["hash_table"](**tr.BENCH_SIZES["hash_table"]),
+            "16x": ALL_APPS["hash_table"](**tr.HASH_TABLE_16X)}
     longest = {}
     for label, app in apps.items():                # chains within the limit
         n_slots = app.statics["n_slots"]
@@ -2926,6 +2912,216 @@ def phase_moe_lm(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-15: full-width seamless-m4t-medium and internvl2-1b, prefill on
+# the flash kernel, then greedy decode
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_N_PARAMS = 877453312        # 12 + 12 layers, d 1024, 16/16 heads of 64
+ENCDEC_FRAMES, ENCDEC_PROMPT = 1024, 64
+VLM_ARCH = "internvl2-1b"
+VLM_N_PARAMS = 631630720           # 24 layers, d 896, 14/2 heads of 64
+VLM_PROMPT = 512                   # text tokens after the 256 patches
+FAMILY_BATCH, FAMILY_DECODE_STEPS = 2, 16
+# each attention of the kernel route against the plain route on the same
+# input: bf16 rounding in another order
+FAMILY_BF16_STEPS = 8
+
+
+def _family_inputs(cfg, dev) -> dict:
+    """A batch of FAMILY_BATCH drawn on the card: the stubbed frontend's
+    float32 frames (encdec) or bf16 patch embeddings (vlm), standard
+    normal, and the prompt's tokens."""
+    import torch
+    from repro_torch.models.encdec import FRAME_DIM
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    b = FAMILY_BATCH
+    if cfg.family == "encdec":
+        batch = {"frames": torch.randn((b, ENCDEC_FRAMES, FRAME_DIM),
+                                       generator=gen, device=dev)}
+        prompt = ENCDEC_PROMPT
+    else:
+        batch = {"patch_embeds": torch.randn(
+            (b, cfg.n_patches, cfg.vit_width), generator=gen,
+            device=dev).to(torch.bfloat16)}
+        prompt = VLM_PROMPT
+    batch["tokens"] = torch.randint(1, cfg.vocab, (b, prompt), generator=gen,
+                                    device=dev, dtype=torch.int32)
+    return batch
+
+
+def _attn_gate(what: str, h, hp, worst: float) -> float:
+    """Flash's attention output ``h`` within FAMILY_BF16_STEPS bf16 steps of
+    the plain route's ``hp`` (at its largest magnitude); returns the worst
+    diff over its tolerance so far."""
+    tol = _bf16_steps(FAMILY_BF16_STEPS, float(hp.abs().max()))
+    diff = float((h.float() - hp.float()).abs().max())
+    require(diff <= tol, f"{what}: flash differs from the plain route by "
+            f"{diff} (tol {tol})")
+    return max(worst, diff / tol)
+
+
+def _both_routes(p, x, cfg, **kw):
+    """One attention on ``x`` through flash and through the plain route."""
+    from repro_torch.models import layers as L
+    h, _ = L.attention(p, x, cfg, impl="kernel", **kw)
+    hp, _ = L.attention(p, x, cfg, impl="naive", **kw)
+    return h, hp
+
+
+def _encdec_walk(params, cfg, batch) -> dict:
+    """The prefill walked layer by layer on the kernel route's stream, each
+    attention held to the plain route on the same input: the encoder's
+    (non-causal over the frames), the decoder's causal self-attention and
+    its cross-attention (non-causal, the prompt over the frames)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _positions, layer_params
+    frames, tokens = batch["frames"], batch["tokens"]
+    b, s_enc, _ = frames.shape
+    pos = _positions(b, s_enc, frames.device)
+    x = frames.to(params["frontend"].dtype) @ params["frontend"]
+    worst = {"encoder": 0.0, "self": 0.0, "cross": 0.0}
+    for i in range(cfg.enc_layers):
+        lp = layer_params(params, i, "enc")
+        h, hp = _both_routes(lp["attn"], L.apply_norm(lp["ln1"], x, cfg),
+                             cfg, positions=pos, causal=False)
+        worst["encoder"] = _attn_gate(f"encoder layer {i}", h, hp,
+                                      worst["encoder"])
+        x = x + h
+        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    enc_out = L.apply_norm(params["ln_enc"], x, cfg)
+    pos = _positions(b, tokens.shape[1], tokens.device)
+    x = L.embed(params["embed"], tokens)
+    for i in range(cfg.dec_layers):
+        lp = layer_params(params, i, "dec")
+        h, hp = _both_routes(lp["self"], L.apply_norm(lp["ln1"], x, cfg),
+                             cfg, positions=pos, causal=True)
+        worst["self"] = _attn_gate(f"decoder layer {i} self", h, hp,
+                                   worst["self"])
+        x = x + h
+        kv = L.project_kv(lp["cross"], enc_out, cfg)
+        h, hp = _both_routes(lp["cross"], L.apply_norm(lp["ln_x"], x, cfg),
+                             cfg, positions=None, causal=False,
+                             kv_override=kv)
+        worst["cross"] = _attn_gate(f"decoder layer {i} cross", h, hp,
+                                    worst["cross"])
+        x = x + h
+        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return worst
+
+
+def _vlm_walk(params, cfg, batch) -> dict:
+    """The prefill over [patches ; text] walked layer by layer on the kernel
+    route's stream, each attention held to the plain route."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import vlm
+    from repro_torch.models.transformer import _positions, layer_params
+    x = vlm._prefix(params, batch["patch_embeds"], batch["tokens"])
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    worst = 0.0
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h, hp = _both_routes(lp["attn"], L.apply_norm(lp["ln1"], x, cfg),
+                             cfg, positions=pos)
+        worst = _attn_gate(f"layer {i}", h, hp, worst)
+        x = x + h
+        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return {"layers": worst}
+
+
+def phase_family_lm(dev, arch: str, n_params_want: int, walk):
+    """``arch`` at full width and depth, random bf16 weights drawn on the
+    card: the main path is one prefill of the batch on the kernel route
+    (``impl="kernel"``: every attention a flash launch) and
+    FAMILY_DECODE_STEPS greedy decode steps, counts at 0 just before and
+    read just after; then a warm prefill's time, each layer's attentions
+    held to the plain route (``walk``), and the plain route's prefill
+    logits beside the kernel route's, reported."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import get_model
+    gc.collect()                                   # the earlier weights
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    phase = f"{cfg.family}_lm"
+    zoo = get_model(cfg)
+    t0 = time.perf_counter()
+    params = card_params(zoo.spec(), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    require(zoo.n_params() == n_params_want, f"{arch}: {zoo.n_params()} "
+            "parameters")
+    batch = _family_inputs(cfg, dev)
+    prompt = batch["tokens"].shape[1]
+    max_len = prompt + FAMILY_DECODE_STEPS
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    lg, cache, pos = zoo.prefill(params, batch, max_len, impl="kernel")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = pos.clone()
+    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    tokens, decode_ms = [tok], []
+    for _ in range(FAMILY_DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok)
+    launches = _lm_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": (cfg.enc_layers + 2 * cfg.dec_layers
+                                if cfg.family == "encdec" else cfg.n_layers),
+            "decode_attention": 0}
+    for k, v in want.items():
+        require(launches[k] == v, f"{arch}: {k} launched {launches[k]} "
+                f"times on the path, want {v}")
+    require(lg.shape == (FAMILY_BATCH, 1, cfg.vocab_padded)
+            and bool(torch.isfinite(lg[..., :cfg.vocab]).all()),
+            f"{arch}: decode logits {tuple(lg.shape)} not finite")
+    ctx = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+    require(first.tolist() == [ctx] * FAMILY_BATCH and pos.tolist() ==
+            [ctx + FAMILY_DECODE_STEPS] * FAMILY_BATCH,
+            f"{arch}: positions {first.tolist()} -> {pos.tolist()}")
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+
+    # -- measurements and checks (launches from here on are not the path)
+    t0 = time.perf_counter()
+    lg_k, _, _ = zoo.prefill(params, batch, max_len, impl="kernel")
+    torch.cuda.synchronize()
+    prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    worst = walk(params, cfg, batch)
+    lg_p, _, _ = zoo.prefill(params, batch, max_len, impl="naive")
+    v = cfg.vocab
+    emit({"phase": phase, "arch": arch, "n_params": zoo.n_params(),
+          "init_s": init_s, "batch": FAMILY_BATCH,
+          "inputs": {k: list(t.shape) for k, t in batch.items()},
+          "prompt": prompt, "context": ctx, "cache": shapes,
+          "prefill_ms": prefill_ms, "prefill_warm_ms": prefill_warm_ms,
+          "decode_ms_per_step": decode_ms,
+          "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+          "max_memory_allocated": peak, "launches": launches,
+          "reckoned": want,
+          "tokens": torch.cat(tokens, 1).tolist(),
+          "attn_bf16_steps": FAMILY_BF16_STEPS,
+          "attn_worst_diff_over_tol": worst,
+          "prefill_logits_kernel_vs_plain": float(
+              (lg_k[..., :v] - lg_p[..., :v]).abs().max()),
+          "prefill_max_abs_logit": float(lg_p[..., :v].abs().max()),
+          "prefill_argmax_equal": bool(torch.equal(
+              lg_k[..., :v].argmax(-1), lg_p[..., :v].argmax(-1)))})
+    del params, cache
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # build: registers, spills and tensor-core instructions of the attention
 # kernels
 # ---------------------------------------------------------------------------
@@ -3102,6 +3298,7 @@ def main() -> int:
     apps_launches = dict(launches)
     timed("serve", phase_serve, tb)
     resident = timed("resident", phase_resident, tb, windowed_walls)
+    async_serve = timed("async_serve", phase_async_serve, tb)
     attn = timed("attention", phase_attention, dev)
     for name, rec in attn.pop("d128").items():
         attn[name]["d128"] = rec
@@ -3122,6 +3319,10 @@ def main() -> int:
     timings.update(hash_rows)
     timings.update(timed("moe_kernel", phase_moe_kernel, dev))
     moe_lm = timed("moe_lm", phase_moe_lm, dev)
+    encdec_lm = timed("encdec_lm", phase_family_lm, dev, ENCDEC_ARCH,
+                      ENCDEC_N_PARAMS, _encdec_walk)
+    vlm_lm = timed("vlm_lm", phase_family_lm, dev, VLM_ARCH, VLM_N_PARAMS,
+                   _vlm_walk)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",
@@ -3132,9 +3333,12 @@ def main() -> int:
     launches["moe_dispatch"] = moe_lm["moe_dispatch"]
     # each path's own run, counted from 0 (the line's ``launches`` is the
     # first path that runs the kernel)
-    by_path = {"apps": apps_launches, "resident": resident, "lm": lm,
+    by_path = {"apps": apps_launches, "resident": resident,
+               "async_windowed": async_serve["windowed"],
+               "async_resident": async_serve["resident"], "lm": lm,
                "ssm_lm": ssm_lm, "hybrid_lm": hybrid,
-               "hash_kernel": hash_path, "moe_lm": moe_lm}
+               "hash_kernel": hash_path, "moe_lm": moe_lm,
+               "encdec_lm": encdec_lm, "vlm_lm": vlm_lm}
     for name, n in resident.items():        # the executor kernels' paths
         launches[name] += n
 

@@ -216,8 +216,9 @@ def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
 
 def _cache_write(cache, kv, position):
     """cache [B, H, S, d]; kv [B, H, 1, d]; position [B] -> a new cache with
-    row ``position[b]`` of batch ``b`` replaced.  Positions past the end
-    write the last row, as ``lax.dynamic_update_slice`` clamps them."""
+    row ``position[b]`` of batch ``b`` replaced (also a scale cache
+    [B, H, S] with kv [B, H, 1]).  Positions past the end write the last
+    row, as ``lax.dynamic_update_slice`` clamps them."""
     out = cache.clone()
     rows = torch.arange(cache.shape[0], device=cache.device)
     pos = position.long().clamp(0, cache.shape[2] - 1)

@@ -1,14 +1,15 @@
 """Decoder-only dense transformer (starcoder2 / phi3 / qwen3 / qwen2 and the
 LM half of internvl2).  Layers are stacked along a leading axis, as in the
 reference; where the reference scans over that axis, the port loops over
-the layer index.  Forward and serving only: the loss, remat and the int8
-KV cache come with later slices.
+the layer index.  Forward and serving, with the int8 KV cache; the loss and
+remat come with the training slice.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import ops as kops
 from . import layers as L
 from .params import resolve_device, stack
 
@@ -30,13 +31,14 @@ def model_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def layer_params(params, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked layer tree (views, no copy)."""
+def layer_params(params, i: int, key: str = "layers") -> dict:
+    """Layer ``i``'s slice of the stacked tree ``params[key]`` (views, no
+    copy)."""
     def take(node):
         if isinstance(node, dict):
             return {k: take(v) for k, v in node.items()}
         return node[i]
-    return take(params["layers"])
+    return take(params[key])
 
 
 def _layer_fwd(cfg: ModelConfig, impl: str, x, lp, positions):
@@ -119,3 +121,72 @@ def decode_step(params, token, cache, position, cfg: ModelConfig):
     x = L.apply_norm(params["ln_f"], x, cfg)
     lg = L.logits(params["embed"], x, cfg)
     return lg, {"k": torch.stack(ks), "v": torch.stack(vs)}, position + 1
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache (decode is bound by streaming the KV cache; int8 values with
+# a per-vector bf16 scale halve the dominant memory term)
+# ---------------------------------------------------------------------------
+
+def abstract_cache_q8(cfg: ModelConfig, batch: int, max_len: int):
+    """The int8 cache's shapes and dtypes, as tensors on the ``meta``
+    device: ``k``/``v`` int8 [L, B, Hkv, max_len, hd], ``ks``/``vs`` bf16
+    [L, B, Hkv, max_len]."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    sshape = shape[:-1]
+    meta = torch.device("meta")
+    return {"k": torch.empty(shape, dtype=torch.int8, device=meta),
+            "v": torch.empty(shape, dtype=torch.int8, device=meta),
+            "ks": torch.empty(sshape, dtype=torch.bfloat16, device=meta),
+            "vs": torch.empty(sshape, dtype=torch.bfloat16, device=meta)}
+
+
+def init_cache_q8(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The zeroed int8 cache on ``device`` (``None``: the card)."""
+    dev = resolve_device(device, "init_cache_q8")
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for k, t in abstract_cache_q8(cfg, batch, max_len).items()}
+
+
+def _quantize_vec(x):
+    """x [..., hd] -> (int8 [..., hd], bf16 scale [...]): per-vector absmax
+    over 127, rounded half to even (``jnp.round``'s rule and
+    ``torch.round``'s)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def decode_step_q8(params, token, cache, position, cfg: ModelConfig):
+    """One-token decode against the int8 cache: the new position's K/V
+    vectors are quantized on write; the cache is dequantized to bf16 for
+    the grouped full-softmax attention, as in the reference."""
+    x = L.embed(params["embed"], token)
+    b = x.shape[0]
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    new = {"k": [], "v": [], "ks": [], "vs": []}
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h_in = L.apply_norm(lp["ln1"], x, cfg)
+        q, k, v = L._project_qkv(lp["attn"], h_in, cfg, position[:, None])
+        knew, ksnew = _quantize_vec(k)             # [B,H,1,hd], [B,H,1]
+        vnew, vsnew = _quantize_vec(v)
+        kq = L._cache_write(cache["k"][i], knew, position)
+        vq = L._cache_write(cache["v"][i], vnew, position)
+        ks = L._cache_write(cache["ks"][i], ksnew, position)   # [B,H,S]
+        vs = L._cache_write(cache["vs"][i], vsnew, position)
+        kd = kq.to(torch.bfloat16) * ks[..., None]
+        vd = vq.to(torch.bfloat16) * vs[..., None]
+        lengths = torch.clamp(position + 1, max=kq.shape[2])
+        out = kops._grouped_ref(q.reshape(b, hkv, hq // hkv, 1, cfg.hd),
+                                kd, vd, causal=False, lengths=lengths)
+        out = out.reshape(b, hq, 1, cfg.hd).transpose(1, 2) \
+            .reshape(b, 1, -1).to(x.dtype)
+        x = x + out @ lp["attn"]["wo"]
+        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+        for key, t in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
+            new[key].append(t)
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    return (L.logits(params["embed"], x, cfg),
+            {k: torch.stack(v) for k, v in new.items()}, position + 1)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports jax or the JAX package, ``TorchBackend()`` never
-falls back to the CPU, and the program crosses from the reference to the
-port as its post-pass IR text."""
+``chip_smoke.py`` or ``tools/torch_serve_bench.py``) imports jax or the
+JAX package, ``TorchBackend()`` never falls back to the CPU, and the
+program crosses from the reference to the port as its post-pass IR
+text."""
 import os
 import re
 import subprocess
@@ -22,22 +23,26 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_without_jax_or_reference():
-    """Import every module of the port and ``chip_smoke.py`` with ``jax``
-    and ``repro`` made unimportable."""
+    """Import every module of the port, ``chip_smoke.py`` and
+    ``tools/torch_serve_bench.py`` with ``jax``, ``repro`` and
+    ``ml_dtypes`` made unimportable."""
     code = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
-        for name in ("jax", "jaxlib", "repro"):
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
             sys.modules[name] = None
         import repro_torch
         mods = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         for m in mods:
             importlib.import_module(m)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", {str(ROOT / "chip_smoke.py")!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for name, path in (("chip_smoke", {str(ROOT / "chip_smoke.py")!r}),
+                           ("torch_serve_bench",
+                            {str(ROOT / "tools" / "torch_serve_bench.py")!r})):
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = sorted(k for k, v in sys.modules.items() if v is not None
-                        and (k.split(".")[0] in ("jax", "jaxlib", "repro")))
+                        and (k.split(".")[0] in ("jax", "jaxlib", "repro",
+                                                  "ml_dtypes")))
         assert not leaked, leaked
         print(" ".join(mods))
     """)
@@ -50,7 +55,10 @@ def test_port_imports_without_jax_or_reference():
     for mod in ("models.rglru", "kernels.rg_lru", "models.ssm",
                 "kernels.ssm_scan", "models.moe", "kernels.moe_dispatch",
                 "kernels.hash_probe", "serve.engine", "launch.serve",
-                "core.device_vm", "kernels.device_loop", "core.primitives"):
+                "core.device_vm", "kernels.device_loop", "core.primitives",
+                "serve.async_engine", "distributed.fault_tolerance",
+                "checkpoint.ckpt", "models.encdec", "models.vlm",
+                "serve.traffic", "kernels.graph_count"):
         assert f"repro_torch.{mod}" in walked
 
 

@@ -3,7 +3,8 @@
 Same inputs (numpy, from a seed) through the reference function and its
 port; the reference's Pallas kernels run as the reference's own tests run
 them here (interpret mode).  Sizes: reduced qwen2-0.5b (2 layers, d 64,
-head dim 16, vocab 512).
+head dim 16, vocab 512); the float32 logits also on reduced
+starcoder2-7b and phi3-mini-3.8b.
 
 Tolerances: float32 2e-5 and bfloat16 2e-2 for the attention kernels (the
 reference's kernel tests, ``tests/test_kernels.py``: the sums run in
@@ -75,12 +76,22 @@ def reduced():
     return cfg, rcfg, get_model(cfg).init_params(0, device="cpu"), rp
 
 
-@pytest.fixture(scope="module")
-def reduced32():
-    cfg = dataclasses.replace(get_reduced(ARCH), param_dtype="float32")
-    rcfg = dataclasses.replace(ref_get_reduced(ARCH), param_dtype="float32")
+def _reduced32(arch):
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+    rcfg = dataclasses.replace(ref_get_reduced(arch), param_dtype="float32")
     rp = ref_get_model(rcfg).init_params(0)
     return cfg, rcfg, get_model(cfg).init_params(0, device="cpu"), rp
+
+
+@pytest.fixture(scope="module")
+def reduced32():
+    return _reduced32(ARCH)
+
+
+@pytest.fixture(scope="module")
+def dense32(request):
+    """``reduced32`` of the dense config ``request.param``."""
+    return _reduced32(request.param)
 
 
 # ---------------------------------------------------------------------------
@@ -125,23 +136,6 @@ def test_entry_points_default_to_the_card(monkeypatch, reduced):
                  lambda: launch_serve.main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
-def test_other_families_raise(arch):
-    """The families still to port (encdec, vlm) raise, naming their ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_reduced(arch))
-
-
-@pytest.mark.parametrize("arch,module", [("seamless-m4t-medium", "encdec"),
-                                         ("internvl2-1b", "vlm")])
-def test_other_families_name_their_queue_item(arch, module):
-    """The message points at the item that ports the family."""
-    with pytest.raises(NotImplementedError,
-                       match=rf"Queue 1 item 3 \(models/{module}\.py\)"):
-        get_model(get_reduced(arch))
 
 
 # ---------------------------------------------------------------------------
@@ -344,11 +338,13 @@ def _prefill_decode(cfg, rcfg, tp, rp, impl, rimpl, tol):
     assert pos.tolist() == np.asarray(rpos).tolist()
 
 
+@pytest.mark.parametrize("dense32", [ARCH, "starcoder2-7b", "phi3-mini-3.8b"],
+                         indirect=True)
 @pytest.mark.parametrize("impl,rimpl", [("kernel", "pallas"),
                                         ("chunked", "chunked"),
                                         ("naive", "naive")])
-def test_prefill_decode_float32_match_reference(reduced32, impl, rimpl):
-    _prefill_decode(*reduced32, impl, rimpl, 1e-4)
+def test_prefill_decode_float32_match_reference(dense32, impl, rimpl):
+    _prefill_decode(*dense32, impl, rimpl, 1e-4)
 
 
 def test_prefill_decode_bfloat16_match_reference(reduced):

@@ -324,7 +324,8 @@ def main() -> int:
     # -- eager calls at the app's 16x tables: the wrappers' host cost
     import numpy as np
     from repro_torch.apps import ALL_APPS
-    app = ALL_APPS["hash_table"](**cs.HASH_TABLE_16X)
+    from repro_torch.serve.traffic import HASH_TABLE_16X
+    app = ALL_APPS["hash_table"](**HASH_TABLE_16X)
     q, tk, tv = [torch.from_numpy(app.dram_init[k].astype(np.int32)).to(dev)
                  for k in ("queries", "table_k", "table_v")]
     n_slots = app.statics["n_slots"]
