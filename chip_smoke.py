@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke — drive the PyTorch port of Revet (the dataflow executor and its
-open-loop serving, the hash probe, and dense-LM, SSM, hybrid, MoE,
-encoder-decoder and VLM serving) on one CUDA card and check it end to end.
+open-loop serving, the hash probe, dense-LM, SSM, hybrid, MoE,
+encoder-decoder and VLM serving, and training) on one CUDA card and check
+it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -155,6 +156,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              decode ms/step, peak bytes, flash launches.
 15. vlm_lm — internvl2-1b the same way: 256 patch embeddings of 1024 and a
              512-token prompt (24 flash launches over 768 positions).
+16. train  — (a) ``repro_torch.launch.train.main`` at the full width of
+             qwen2-0.5b: 20 steps of 8 x 1024 tokens, int8 gradient
+             compression, one checkpoint at the end; every loss finite;
+             first and warm step ms, tokens/s, model-FLOP share, peak
+             bytes, the save's seconds and bytes.  (b) 10 AdamW steps on
+             one fixed batch at full width lower the loss; one more step
+             timed in parts (loss and grads, compression, AdamW) and under
+             torch.profiler (device busy share).  (c) 2 layers,
+             a fault at step 6: one restart, 10 steps, the replayed
+             losses against an uninterrupted run (bit for bit reported).
+             (d) reduced qwen2-0.5b and falcon-mamba-7b in float32: a
+             step's loss and every gradient within 1e-4 of the port's CPU
+             step.  (e) one step of each other family at full width and 2
+             layers (recurrentgemma-9b: a group and its 2 tail blocks):
+             loss and gradients finite, step ms, peak bytes.  (f) flash
+             attention on inputs that require grad raises.  The training
+             route is the plain chunked one: no hand-written kernel may
+             launch in (a)-(e).
 
 The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
@@ -3126,6 +3145,373 @@ def phase_family_lm(dev, arch: str, n_params_want: int, walk):
 # kernels
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# training: the optimizer, compression, the data pipeline and the driver
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_N_PARAMS = 494147456         # N of the model-FLOP share 6·N·B·S
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_FULL = ("--steps", "20", "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--grad-compression", "int8", "--ckpt-every",
+              "21")
+TRAIN_LEARN_STEPS = 10             # AdamW steps on one fixed batch
+TRAIN_RESTART = ("--steps", "10", "--batch", "2", "--seq", "256",
+                 "--ckpt-every", "4")
+TRAIN_FAULT_AT = 6
+# one step's loss and every gradient leaf, card against the port's CPU
+# step, reduced models in float32 (TF32 off): sums in another order
+TRAIN_CARD_CPU_TOL = 1e-4
+# every other family at full width, 2 layers (recurrentgemma-9b: one group
+# of 3 blocks plus its 2 tail blocks), one step on (B, S)
+TRAIN_FAMILIES = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 5,
+                  "olmoe-1b-7b": 2, "seamless-m4t-medium": 2,
+                  "internvl2-1b": 2}
+TRAIN_FAMILY_SHAPE = (2, 512)
+
+
+class _TrainProbe:
+    """Inside ``with``: ``launch.train``'s steps timed (a synchronise on
+    each side of every step), each ``ckpt.save`` timed with the bytes it
+    wrote, and ``train.get_config`` cut to ``n_layers`` when given.  Puts
+    everything back on exit."""
+
+    def __init__(self, n_layers=None):
+        self.n_layers = n_layers
+        self.step_s, self.saves = [], []
+
+    def __enter__(self):
+        import dataclasses
+
+        import torch
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.launch import train
+        self._orig = (train.build_step, ckpt.save, train.get_config)
+        build, save, get_config = self._orig
+
+        def build_step(*a, **kw):
+            step = build(*a, **kw)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                self.step_s.append(time.perf_counter() - t)
+                return out
+            return timed
+
+        def timed_save(ckpt_dir, step, tree, keep=3):
+            t = time.perf_counter()
+            path = save(ckpt_dir, step, tree, keep)
+            self.saves.append({"step": step,
+                               "s": time.perf_counter() - t,
+                               "bytes": sum(f.stat().st_size for f in
+                                            Path(path).iterdir())})
+            return path
+
+        train.build_step, ckpt.save = build_step, timed_save
+        if self.n_layers:
+            train.get_config = lambda arch: dataclasses.replace(
+                get_config(arch), n_layers=self.n_layers)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.launch import train
+        train.build_step, ckpt.save, train.get_config = self._orig
+        return False
+
+
+def _train_main(argv, ckpt_dir, dev, n_layers=None):
+    """``launch.train.main(argv)`` on ``dev`` in a fresh ``ckpt_dir``;
+    returns (its dict, the probe, the launches of the 8 kernels in it)."""
+    import shutil
+
+    from repro_torch.launch import train
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _reset_all_launches()
+    with _TrainProbe(n_layers) as probe:
+        out = train.main(list(argv) + ["--ckpt-dir", str(ckpt_dir),
+                                       "--log-every", "5"], device=dev)
+    launches = _lm_launches()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out, probe, launches
+
+
+def _family_batch(cfg, b, s, dev, step=0):
+    """The train driver's batch of ``step``: the pipeline's tokens, and the
+    stubbed frontend's frames or patch embeddings from default_rng(step)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    batch = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                global_batch=b)).batch(step, dev)
+    rng = np.random.default_rng(step)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.vit_width))).to(torch.bfloat16).to(dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, min(s, 4096), 80))).to(torch.float32).to(dev)
+    return batch
+
+
+def _finite_tree(tree) -> bool:
+    import torch
+    from repro_torch.models.params import leaves
+    return all(bool(torch.isfinite(g.float()).all()) for g in leaves(tree))
+
+
+def train_profile(zoo, state, batch, ocfg) -> dict:
+    """One step of ``state`` on ``batch`` split on the host clock (each part
+    ending in a synchronise): the loss and grads, int8 compression, AdamW;
+    then torch.profiler over one whole step (with compression): device
+    busy share and the largest device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw, compression
+    err = compression.init_error_state(state["params"])
+    parts = {}
+
+    def part(name, fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    _, grads = part("loss_and_grads_ms", train.loss_and_grads, zoo,
+                    state["params"], batch)
+    grads, err = part("int8_roundtrip_ms", compression.roundtrip_tree,
+                      grads, err)
+    part("adamw_ms", adamw.apply, state["params"], grads, state["opt"], ocfg)
+    del grads
+    step = train.build_step(zoo, ocfg, "chunked", "int8")
+    full = dict(state, err=err)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(full, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {**parts, "profile": "one step with int8 compression",
+            **device_time(prof, wall, "train profile")}
+
+
+def phase_train(dev):
+    """(a) ``launch.train.main`` at the full width of qwen2-0.5b, 20 steps
+    of 8 x 1024 tokens with int8 gradient compression, one checkpoint at
+    the end: every loss finite; first and warm step ms, tokens/s, the
+    model-FLOP share, peak bytes, the save's seconds and bytes.  (b) 10
+    AdamW steps on one fixed batch at full width lower the loss; then one
+    more step split into its parts and profiled.  (c) 2 layers at full
+    width, a fault at step 6 restarted from step 4's
+    checkpoint: the replayed steps' losses against an uninterrupted run.
+    (d) reduced qwen2-0.5b and falcon-mamba-7b in float32: one step's loss
+    and gradients on the card against the port's CPU step.  (e) one step
+    of every other family at full width, 2 layers: finite loss and grads.
+    (f) flash attention on inputs that require grad raises.  None of it
+    launches a hand-written kernel (the training route is the plain
+    chunked one): every count must stay 0."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.models.zoo import get_model
+    from repro_torch.optim import adamw
+
+    rec = {}
+    ck = ROOT / "build" / "train_ckpt"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+    # (a) the driver at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out, probe, launches = _train_main(("--arch", TRAIN_ARCH, "--preset",
+                                        "full") + TRAIN_FULL, ck / "a", dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(out["stopped"] == 20 and len(out["losses"]) == 20,
+            f"train (a): {out['stopped']} steps")
+    require(all(math.isfinite(x) for x in out["losses"]),
+            f"train (a): a loss is not finite: {out['losses']}")
+    require(not any(launches.values()), f"train (a): kernels {launches}")
+    require(len(probe.saves) == 1, f"train (a): saves {probe.saves}")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    warm_s = statistics.median(probe.step_s[1:])
+    rec["a"] = {
+        "arch": TRAIN_ARCH, "n_params": TRAIN_N_PARAMS, "batch": b, "seq": s,
+        "steps": out["stopped"], "losses": out["losses"],
+        "first_step_ms": probe.step_s[0] * 1e3,
+        "warm_step_ms": warm_s * 1e3,
+        "step_ms": [x * 1e3 for x in probe.step_s],
+        "tokens_per_s": b * s / warm_s,
+        "driver_tok_s": out["tok_s"], "wall_s": wall,
+        "model_flop_share": 6 * TRAIN_N_PARAMS * b * s / warm_s
+        / PEAK_FLOPS["bfloat16"],
+        "peak_bytes": peak, "save_s": probe.saves[0]["s"],
+        "save_bytes": probe.saves[0]["bytes"],
+        "save_bytes_per_param": probe.saves[0]["bytes"] / TRAIN_N_PARAMS,
+        "kernel_launches": launches, "card": smi}
+    emit({"phase": "train", "part": "a_driver_full_width", **rec["a"]})
+
+    # (b) learning on one fixed batch, full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = get_model(get_config(TRAIN_ARCH))
+    params = card_params(zoo.spec(), dev)
+    batch = _family_batch(zoo.cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    ocfg = adamw.OptConfig(lr=1e-3, warmup_steps=2,
+                           total_steps=TRAIN_LEARN_STEPS)
+    state = {"params": params, "opt": adamw.init_state(params)}
+    step = train.build_step(zoo, ocfg, "chunked", None)
+    losses = []
+    for _ in range(TRAIN_LEARN_STEPS):
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"train (b): no learning: {losses}")
+    rec["b"] = {"losses": losses, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "lr": ocfg.lr}
+    emit({"phase": "train", "part": "b_learns_fixed_batch", **rec["b"]})
+    del params, step
+    rec["profile"] = train_profile(zoo, state, batch, ocfg)
+    emit({"phase": "train", "part": "a_b_step_profile", **rec["profile"]})
+    del state
+
+    # (c) fault and restart against an uninterrupted run, 2 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ("--arch", TRAIN_ARCH, "--preset", "full") + TRAIN_RESTART
+    faulted, fprobe, fl = _train_main(
+        argv + ("--simulate-fault", str(TRAIN_FAULT_AT)), ck / "c1", dev,
+        n_layers=2)
+    clean, cprobe, cl = _train_main(argv, ck / "c2", dev, n_layers=2)
+    require(faulted["restarts"] == 1 and faulted["stopped"] == 10,
+            f"train (c): restarts {faulted['restarts']}, stopped "
+            f"{faulted['stopped']}")
+    require(not any(fl.values()) and not any(cl.values()),
+            f"train (c): kernels {fl} {cl}")
+    replay, want = faulted["losses"][TRAIN_FAULT_AT:], clean["losses"][4:]
+    require(len(replay) == len(want) == 6 and
+            faulted["losses"][:TRAIN_FAULT_AT] == clean["losses"][
+                :TRAIN_FAULT_AT], f"train (c): {faulted['losses']} vs "
+            f"{clean['losses']}")
+    diff = max(abs(x - y) for x, y in zip(replay, want))
+    require(diff <= 1e-3 * max(abs(x) for x in want),
+            f"train (c): replayed losses {replay} vs {want}")
+    rec["c"] = {"restarts": faulted["restarts"],
+                "stopped": faulted["stopped"],
+                "replayed_losses": replay, "uninterrupted_losses": want,
+                "bit_for_bit": replay == want, "max_abs_diff": diff,
+                "saves_faulted": fprobe.saves, "saves_clean": cprobe.saves}
+    emit({"phase": "train", "part": "c_fault_restart", **rec["c"]})
+
+    # (d) the card against the CPU, reduced, float32
+    rec["d"] = {"tol": TRAIN_CARD_CPU_TOL}
+    for arch in ("qwen2-0.5b", "falcon-mamba-7b"):
+        rz = get_model(dataclasses.replace(get_reduced(arch),
+                                           param_dtype="float32"))
+        p_cpu = rz.init_params(0, device="cpu")
+        b_cpu = rz.make_batch(ShapeConfig("t", 64, 2, "train"), seed=1,
+                              device="cpu")
+        l_cpu, g_cpu = train.loss_and_grads(rz, p_cpu, b_cpu)
+        l_dev, g_dev = train.loss_and_grads(
+            rz, tree_map(lambda t: t.to(dev), p_cpu),
+            {k: v.to(dev) for k, v in b_cpu.items()})
+        worst = 0.0
+        for gc_, gd in zip(leaves(g_cpu), leaves(g_dev)):
+            err = float((gd.cpu() - gc_).abs().max())
+            worst = max(worst, err / max(1.0, float(gc_.abs().max())))
+        ldiff = abs(float(l_dev) - float(l_cpu))
+        require(ldiff <= TRAIN_CARD_CPU_TOL and worst <= TRAIN_CARD_CPU_TOL,
+                f"train (d) {arch}: loss diff {ldiff}, grad {worst}")
+        rec["d"][arch] = {"loss_cpu": float(l_cpu), "loss_card": float(l_dev),
+                          "loss_diff": ldiff, "grad_err_over_scale": worst,
+                          "leaves": len(leaves(g_cpu))}
+    emit({"phase": "train", "part": "d_card_vs_cpu", **rec["d"]})
+
+    # (e) every other family, full width, 2 layers, one step
+    rec["e"] = {}
+    fb, fs = TRAIN_FAMILY_SHAPE
+    for arch, n_layers in TRAIN_FAMILIES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, enc_layers=2, dec_layers=2)
+        zoo = get_model(cfg)
+        params = card_params(zoo.spec(), dev)
+        batch = _family_batch(cfg, fb, fs, dev)
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = train.loss_and_grads(zoo, params, batch)
+        finite = math.isfinite(float(loss)) and _finite_tree(grads)
+        grad_ms = (time.perf_counter() - t) * 1e3
+        del grads
+        state = {"params": params, "opt": adamw.init_state(params)}
+        del params
+        step = train.build_step(zoo, adamw.OptConfig(lr=1e-3), "chunked",
+                                None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        step_loss = float(met["loss"])
+        step_ms = (time.perf_counter() - t) * 1e3
+        finite = finite and math.isfinite(step_loss) and _finite_tree(
+            state["params"])
+        launches = _lm_launches()
+        require(finite, f"train (e) {arch}: loss {float(loss)} or a "
+                "gradient is not finite")
+        require(not any(launches.values()),
+                f"train (e) {arch}: kernels {launches}")
+        rec["e"][arch] = {"n_layers": n_layers, "n_params": zoo.n_params(),
+                          "batch": fb, "seq": fs, "loss": float(loss),
+                          "first_grad_ms": grad_ms, "step_ms": step_ms,
+                          "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        emit({"phase": "train", "part": "e_family", "arch": arch,
+              **rec["e"][arch]})
+        del state, step
+
+    # (f) the kernel refuses to be differentiated
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = (torch.randn(4, 128, 64, device=dev, requires_grad=True)
+               for _ in range(3))
+    before = flash_attention.launches
+    try:
+        flash_attention(q, k, v)
+        refused = False
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    require(refused and flash_attention.launches == before,
+            "train (f): flash_attention ran on inputs that require grad")
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    require(flash_attention.launches == before + 1,
+            "train (f): flash_attention did not launch under no_grad")
+    rec["f"] = {"flash_attention_refused_under_grad": refused}
+    emit({"phase": "train", "part": "f_refusal", **rec["f"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _demangle(names: list[str]) -> list[str]:
     """``kernel<args>`` for each mangled name (the names as they are when
     ``c++filt`` is missing)."""
@@ -3323,6 +3709,7 @@ def main() -> int:
                       ENCDEC_N_PARAMS, _encdec_walk)
     vlm_lm = timed("vlm_lm", phase_family_lm, dev, VLM_ARCH, VLM_N_PARAMS,
                    _vlm_walk)
+    timed("train", phase_train, dev)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",

@@ -120,6 +120,23 @@ def check_constant(built: int, wrapper: int, what: str, name: str) -> None:
                            f"wrapper's is {wrapper}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate through a kernel:
+    grad is enabled and an input requires grad.  The kernels have no
+    backward, and their outputs are written through ``ctypes`` into fresh
+    tensors that autograd cannot see, so a gradient would silently drop;
+    the reference's ``jax.grad`` through a Pallas kernel fails as well.
+    Checked on every device, the plain CPU path included, so that the CPU
+    and the card agree."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the hand-written kernel has no backward; train "
+            "through impl='chunked' or 'naive' (the MoE's 'scatter'), or "
+            "call it under torch.no_grad()")
+
+
 def check(lib: ctypes.CDLL, what: str, err: int) -> None:
     """Raise if an entry point returned a CUDA error."""
     if err:

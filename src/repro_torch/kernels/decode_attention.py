@@ -184,6 +184,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row (raising if it cannot: head dim not in ``HEAD_DIMS``,
     non-contiguous or misaligned input), a CPU tensor runs
     :func:`decode_attention_plain`."""
+    _build.refuse_grad("decode_attention", q, k, v)
     g = _check(q, k, v, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)

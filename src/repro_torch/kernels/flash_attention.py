@@ -101,6 +101,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CUDA tensor launches the kernel (raising if it cannot: head dim not
     in ``HEAD_DIMS``, non-contiguous or misaligned input), a CPU tensor
     runs :func:`flash_attention_plain`."""
+    _build.refuse_grad("flash_attention", q, k, v)
     g = _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)

@@ -91,6 +91,7 @@ def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor,
     positions[a] < C``; kept (expert, position) pairs must be unique.  A
     CUDA tensor launches the kernel (raising if it cannot: int64 or
     non-contiguous input), a CPU tensor runs :func:`moe_dispatch_plain`."""
+    _build.refuse_grad("moe_dispatch", tokens)
     _check(tokens, expert_idx, positions, n_experts, capacity)
     if tokens.device.type == "cpu":
         return moe_dispatch_plain(tokens, expert_idx, positions, n_experts,

@@ -17,16 +17,20 @@ and the results patched; ``torch.remainder`` floors where the IR truncates
 there is no full uint32 arithmetic, so unsigned ops run in int64 on
 ``a & 0xFFFFFFFF``.
 
-Attention (the reference's ``kernels/ops.py:582-859``, forward only):
-``mha`` and ``decode_mha`` with GQA, the grouped full-softmax reference
+Attention (the reference's ``kernels/ops.py:582-859``): ``mha`` and
+``decode_mha`` with GQA, the grouped full-softmax reference
 ``_grouped_ref``, and the chunked flash-style paths.  The reference's
 ``impl="pallas"`` route is ``impl="kernel"`` here: it launches the
 hand-written ``flash_attention`` / ``decode_attention`` kernels on a CUDA
 tensor and runs their plain torch versions on a CPU tensor.  Where the
 reference repeats kv heads to match q's before its kernels, the port's
 kernels index the kv row of each query row (GQA by index, no copy).
-``"chunked"`` and ``"ref"`` keep their meaning.  The flash backwards come
-with training.
+``"chunked"`` and ``"ref"`` keep their meaning.  ``chunked_attention`` and
+``grouped_chunked_attention`` are ``torch.autograd.Function``s with the
+reference's flash backwards (its ``custom_vjp``s, in plain torch); the
+``"ref"`` route differentiates through torch's autograd.  The kernels have
+no backward: called on inputs that require grad, with grad enabled, they
+raise, as ``jax.grad`` through a Pallas kernel fails in the reference.
 
 Recurrences (the reference's ``kernels/ops.py:862-979``): ``ssm`` and
 ``rg_lru_scan`` with ``impl="kernel"`` launch the hand-written ``ssm_scan``
@@ -375,12 +379,58 @@ def _chunk_attn_fwd_impl(q, k, v, causal, block_k):
     return out, m + torch.log(l.clamp_min(1e-30))
 
 
+def _chunk_attn_bwd(q, k, v, out, lse, dout, causal, block_k):
+    """The flash backward over the same KV blocks, float32: ``delta =
+    sum(dO·O)``, per block ``p = exp(s - lse)``, ``ds = p·(dp - delta)·
+    scale``; dq accumulates, dk/dv are per block.  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    block_k = _pick_block(skv, block_k)
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float()
+    do = dout.float()
+    delta = torch.sum(do * out.float(), -1, keepdim=True)
+    dq = torch.zeros((bh, sq, d), device=q.device)
+    dks, dvs = [], []
+    for jb in range(skv // block_k):
+        ks = k[:, jb * block_k:(jb + 1) * block_k].float()
+        vs = v[:, jb * block_k:(jb + 1) * block_k].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, ks) * scale
+        if causal:
+            s = s + _causal_bias(jb, block_k, sq, skv, q.device)[None]
+        p = torch.exp(s - lse)                         # [bh, sq, bk]
+        dvs.append(torch.einsum("bqk,bqd->bkd", p, do))
+        dp = torch.einsum("bqd,bkd->bqk", do, vs)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bqk,bkd->bqd", ds, ks)
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, out,
+    lse) and nothing of its loop; the backward is :func:`_chunk_attn_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_k):
+        out, lse = _chunk_attn_fwd_impl(q, k, v, causal, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.block_k = causal, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_chunk_attn_bwd(*ctx.saved_tensors, dout, ctx.causal,
+                                 ctx.block_k), None, None)
+
+
 def chunked_attention(q, k, v, causal: bool = True, block_k: int = 512):
-    """Flash attention in plain torch: a loop over KV blocks with an online
-    softmax, O(Sq * block_k) memory.  q [BH, Sq, D], k/v [BH, Skv, D];
-    bottom-right causal mask.  Forward only (the flash backward comes with
-    training)."""
-    return _chunk_attn_fwd_impl(q, k, v, causal, block_k)[0]
+    """Flash attention in plain torch with a flash backward: both passes
+    loop over KV blocks and keep only (q, k, v, out, lse), O(Sq * block_k)
+    memory.  q [BH, Sq, D], k/v [BH, Skv, D]; bottom-right causal mask."""
+    return _ChunkedAttention.apply(q, k, v, causal, block_k)
 
 
 def _gchunk_fwd_impl(qg, k, v, causal, block_k):
@@ -408,11 +458,56 @@ def _gchunk_fwd_impl(qg, k, v, causal, block_k):
     return out, m + torch.log(l.clamp_min(1e-30))
 
 
+def _gchunk_bwd(qg, k, v, out, lse, dout, causal, block_k):
+    """:func:`_chunk_attn_bwd` over grouped heads: dk/dv sum over the G
+    query heads of each kv head."""
+    b, h, g, sq, d = qg.shape
+    skv = k.shape[2]
+    block_k = _pick_block(skv, block_k)
+    scale = 1.0 / (d ** 0.5)
+    qf = qg.float()
+    do = dout.float()
+    delta = torch.sum(do * out.float(), -1, keepdim=True)
+    dq = torch.zeros((b, h, g, sq, d), device=qg.device)
+    dks, dvs = [], []
+    for jb in range(skv // block_k):
+        ks = k[:, :, jb * block_k:(jb + 1) * block_k].float()
+        vs = v[:, :, jb * block_k:(jb + 1) * block_k].float()
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qf, ks) * scale
+        if causal:
+            sc = sc + _causal_bias(jb, block_k, sq, skv, qg.device)
+        p = torch.exp(sc - lse)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, do))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", do, vs)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, ks)
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qf))
+    return (dq.to(qg.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
+
+
+class _GroupedChunkedAttention(torch.autograd.Function):
+    """:class:`_ChunkedAttention` over grouped heads (the reference's
+    ``grouped_chunked_attention`` ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, causal, block_k):
+        out, lse = _gchunk_fwd_impl(qg, k, v, causal, block_k)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.causal, ctx.block_k = causal, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_gchunk_bwd(*ctx.saved_tensors, dout, ctx.causal,
+                             ctx.block_k), None, None)
+
+
 def grouped_chunked_attention(qg, k, v, causal: bool = True,
                               block_k: int = 512):
-    """Flash attention over grouped heads: qg [B, Hkv, G, Sq, D];
-    k/v [B, Hkv, Skv, D].  Forward only."""
-    return _gchunk_fwd_impl(qg, k, v, causal, block_k)[0]
+    """Flash attention over grouped heads, forward and backward: qg
+    [B, Hkv, G, Sq, D]; k/v [B, Hkv, Skv, D]; kv never repeated."""
+    return _GroupedChunkedAttention.apply(qg, k, v, causal, block_k)
 
 
 def decode_mha(q, k, v, lengths, impl: str = "kernel"):

@@ -116,6 +116,7 @@ def rg_lru(a, b, h0):
 
     A CUDA tensor launches the kernel (raising if it cannot: B above
     65535, non-contiguous input), a CPU tensor runs :func:`rg_lru_plain`."""
+    _build.refuse_grad("rg_lru", a, b, h0)
     _check(a, b, h0)
     if a.device.type == "cpu":
         return rg_lru_plain(a, b, h0)

@@ -158,6 +158,7 @@ def ssm_scan(x, dt, a, b, c, d, h0):
     A CUDA tensor launches the kernel (raising if it cannot: N above
     ``MAX_STATE``, B above 65535, non-contiguous input), a CPU tensor runs
     :func:`ssm_scan_plain`."""
+    _build.refuse_grad("ssm_scan", x, dt, a, b, c, d, h0)
     _check(x, dt, a, b, c, d, h0)
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, a, b, c, d, h0)

@@ -5,8 +5,9 @@ features, and a linear adapter projects them into the encoder.
 Encoder: bidirectional self-attention + MLP.  Decoder: causal
 self-attention, cross-attention over the encoder output, MLP.  Layers are
 stacked along a leading axis, as in the reference; where the reference
-scans over that axis, the port loops over the layer index.  Forward and
-serving only: the loss comes with the training slice.
+scans over that axis, the port loops over the layer index.  Training:
+``loss_fn`` over the decoder tokens, with remat per encoder layer and per
+decoder layer while grad is enabled.
 
 With ``impl="kernel"`` every full-sequence attention runs the flash kernel
 on a CUDA tensor: the encoder's (non-causal over the frames), the decoder's
@@ -22,7 +23,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, resolve_device, stack
-from .transformer import _positions, layer_params
+from .transformer import _positions, layer_params, unstack
 
 FRAME_DIM = 80   # fbank features from the stubbed frontend
 
@@ -50,17 +51,23 @@ def model_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def encode(params, frames, cfg: ModelConfig, impl: str = "chunked"):
-    """frames [B, S_enc, 80] -> encoder states [B, S_enc, D]."""
+def _enc_layer(cfg: ModelConfig, impl: str, x, lp, positions):
+    h, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                       positions=positions, impl=impl, causal=False)
+    x = x + h
+    return x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+
+
+def encode(params, frames, cfg: ModelConfig, impl: str = "chunked",
+           remat: bool = True):
+    """frames [B, S_enc, 80] -> encoder states [B, S_enc, D].  With
+    ``remat`` each layer is recomputed in the backward (only while grad is
+    enabled)."""
     b, s, _ = frames.shape
     positions = _positions(b, s, frames.device)
     x = frames.to(params["frontend"].dtype) @ params["frontend"]
-    for i in range(cfg.enc_layers):
-        lp = layer_params(params, i, "enc")
-        h, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
-                           positions=positions, impl=impl, causal=False)
-        x = x + h
-        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    for lp in unstack(params["enc"]):
+        x = L.remat(_enc_layer, cfg, impl, x, lp, positions, enabled=remat)
     return L.apply_norm(params["ln_enc"], x, cfg)
 
 
@@ -79,20 +86,33 @@ def dec_layer(cfg: ModelConfig, impl: str, x, lp, enc_out, positions):
     return x, kv, (ek, ev)
 
 
-def trunk(params, frames, tokens, cfg: ModelConfig, impl: str = "chunked"):
-    enc_out = encode(params, frames, cfg, impl)
+def trunk(params, frames, tokens, cfg: ModelConfig, impl: str = "chunked",
+          remat: bool = True):
+    """(frames, tokens [B, S]) -> the decoder's final hidden states."""
+    enc_out = encode(params, frames, cfg, impl, remat)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = L.embed(params["embed"], tokens)
-    for i in range(cfg.dec_layers):
-        x, _, _ = dec_layer(cfg, impl, x, layer_params(params, i, "dec"),
-                            enc_out, positions)
+    for lp in unstack(params["dec"]):
+        x = L.remat(dec_layer, cfg, impl, x, lp, enc_out, positions,
+                    enabled=remat)[0]
     return L.apply_norm(params["ln_f"], x, cfg)
 
 
-def forward(params, frames, tokens, cfg: ModelConfig, impl: str = "chunked"):
-    x = trunk(params, frames, tokens, cfg, impl)
+def forward(params, frames, tokens, cfg: ModelConfig, impl: str = "chunked",
+            remat: bool = True):
+    x = trunk(params, frames, tokens, cfg, impl, remat)
     return L.logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            fused: bool = True):
+    """Mean next-token cross-entropy of the decoder tokens."""
+    if fused:
+        x = trunk(params, batch["frames"], batch["tokens"], cfg, impl=impl)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg)
+    lg = forward(params, batch["frames"], batch["tokens"], cfg, impl=impl)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:])
 
 
 # -- serving ---------------------------------------------------------------------

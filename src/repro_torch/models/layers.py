@@ -1,6 +1,7 @@
-"""Shared transformer building blocks: norms, RoPE, GQA attention (prefill
-and decode), gated MLPs, embeddings.  Plain functions over param dicts of
-torch tensors; each follows its inputs' device and dtype.
+"""Shared transformer building blocks: norms, RoPE, GQA attention (train,
+prefill and decode), gated MLPs, embeddings, the losses (``xent_loss`` and
+the vocab-chunked ``fused_xent_loss``) and ``remat``.  Plain functions over
+param dicts of torch tensors; each follows its inputs' device and dtype.
 
 Attention implementations (``impl``):
   * "naive"   — full S×S scores (``ops.mha(impl="ref")``);
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
@@ -278,3 +280,119 @@ def logits(p, x, cfg: ModelConfig):
         idx = torch.arange(cfg.vocab_padded, device=lg.device)
         lg = lg + torch.where(idx < cfg.vocab, 0.0, -1e30)
     return lg
+
+
+def xent_loss(lg, labels, mask=None):
+    """Mean next-token cross-entropy of float32 logits ``lg`` [..., V] at
+    int ``labels`` [...], over ``mask`` when given."""
+    lp = torch.log_softmax(lg, dim=-1)
+    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return -ll.mean()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint``), while grad is enabled; a plain call
+    otherwise, so serving does not change."""
+    if enabled and torch.is_grad_enabled():
+        # no layer draws random numbers: nothing to stash for the recompute
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# fused vocab-chunked cross-entropy
+# ---------------------------------------------------------------------------
+#
+# Full logits are [B, S, V] in float32 (and log_softmax, and its gradient):
+# at V = 152k-256k the peak-memory term of a training step.  The fused path
+# never forms them: the forward walks sequence chunks keeping only (lse,
+# picked-label logit); the backward recomputes each chunk's softmax and
+# contracts it at once into dx and dW.  Peak extra memory: one [B, C, V]
+# chunk instead of [B, S, V].
+
+_XENT_CHUNK = 256
+
+
+def _pick_chunk(s: int, chunk: int) -> int:
+    """The largest divisor of ``s`` that is at most ``chunk``."""
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _xent_chunk_logits(x, w, pad_mask, jb: int, chunk: int):
+    """Chunk ``jb``'s float32 logits [B, C, V] (masked padding)."""
+    xc = x[:, jb * chunk:(jb + 1) * chunk]
+    return (xc @ w.to(xc.dtype)).float() + pad_mask
+
+
+class _FusedXent(torch.autograd.Function):
+    """The reference's ``fused_xent`` ``custom_vjp``: the loss of hidden
+    states x [B, S, D] against w [D, V] at labels [B, S], with an additive
+    float32 ``pad_mask`` [V]; saves (x, w, labels, pad_mask)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, pad_mask, chunk):
+        b, s, _ = x.shape
+        chunk = _pick_chunk(s, chunk)
+        total = torch.zeros((), dtype=F32, device=x.device)
+        for jb in range(s // chunk):
+            lg = _xent_chunk_logits(x, w, pad_mask, jb, chunk)
+            lc = labels[:, jb * chunk:(jb + 1) * chunk].long()
+            lse = torch.logsumexp(lg, dim=-1)
+            picked = torch.gather(lg, -1, lc[..., None])[..., 0]
+            total = total + torch.sum(lse - picked)
+        ctx.save_for_backward(x, w, labels, pad_mask)
+        ctx.chunk = chunk
+        return total / (b * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, pad_mask = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, s, d = x.shape
+        scale = g / (b * s)
+        wf = w.float()
+        dw = torch.zeros((d, w.shape[1]), dtype=F32, device=x.device)
+        dxs = []
+        for jb in range(s // chunk):
+            xc = x[:, jb * chunk:(jb + 1) * chunk]
+            lc = labels[:, jb * chunk:(jb + 1) * chunk].long()
+            p = torch.softmax(_xent_chunk_logits(x, w, pad_mask, jb, chunk),
+                              dim=-1)
+            p.scatter_add_(-1, lc[..., None], torch.full(
+                lc[..., None].shape, -1.0, device=p.device))   # - one_hot
+            dxs.append((torch.einsum("bcv,dv->bcd", p, wf) * scale)
+                       .to(x.dtype))
+            dw = dw + torch.einsum("bcd,bcv->dv", xc.float(), p) * scale
+        return torch.cat(dxs, 1), dw.to(w.dtype), None, None, None
+
+
+def fused_xent(x, w, labels, pad_mask, chunk: int = _XENT_CHUNK):
+    """Mean cross-entropy of ``x @ w`` (+ ``pad_mask``) at ``labels``,
+    over sequence chunks of at most ``chunk`` (a divisor of S), never
+    forming the [B, S, V] logits; dW comes back in w's dtype."""
+    return _FusedXent.apply(x, w, labels, pad_mask, chunk)
+
+
+def fused_xent_loss(embed_params, x, tokens, cfg: ModelConfig):
+    """Next-token loss from final hidden states without the full logits.
+    ``x`` [B, S, D] post-final-norm; ``tokens`` [B, S].  With tied
+    embeddings w is ``tok``'s transpose, and the gradient reaches ``tok``
+    through it."""
+    w = embed_params["tok"].T if cfg.tie_embeddings \
+        else embed_params["unembed"]
+    vp = cfg.vocab_padded
+    idx = torch.arange(vp, device=x.device)
+    pad_mask = torch.where(idx < cfg.vocab, 0.0, -1e30) \
+        if vp > cfg.vocab else torch.zeros(vp, device=x.device)
+    return fused_xent(x[:, :-1], w, tokens[:, 1:], pad_mask)

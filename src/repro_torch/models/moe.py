@@ -15,8 +15,11 @@ As in the reference, the model's ``revet`` path dispatches with
 ``impl="scatter"``; the hand-written dispatch kernel is reached through
 ``ops.moe_dispatch_combine(impl="kernel")``, on a layer's own router
 (:func:`route`) and experts (:func:`expert_fn`).  Layers are stacked along
-a leading axis; the port loops over the layer index.  Forward and serving
-only: the loss and remat come with training.
+a leading axis; the port loops over the layer index.  Training:
+``loss_fn`` adds ``aux_weight`` times the mean load-balance loss to the
+cross-entropy, with remat over each layer's (x, aux) while grad is
+enabled; the gates carry the gradient into the router, the expert indices
+and the load counts do not.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, stack
-from .transformer import _positions, init_cache, layer_params  # noqa: F401
+from .transformer import (_positions, init_cache, layer_params,  # noqa: F401
+                          unstack)
 
 F32 = torch.float32
 
@@ -132,25 +136,40 @@ def _layer_fwd(cfg: ModelConfig, impl: str, path: str, x, lp, positions):
 
 
 def trunk(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-          path: str = "revet", positions=None):
-    """tokens [B, S] -> (final hidden states [B, S, D], mean aux loss)."""
+          remat: bool = True, path: str = "revet", positions=None):
+    """tokens [B, S] -> (final hidden states [B, S, D], mean aux loss).
+    With ``remat`` each layer is recomputed in the backward (only while
+    grad is enabled)."""
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = L.embed(params["embed"], tokens)
     aux = torch.zeros((), dtype=F32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, a, _ = _layer_fwd(cfg, impl, path, x, layer_params(params, i),
-                             positions)
+    for lp in unstack(params["layers"]):
+        x, a, _ = L.remat(_layer_fwd, cfg, impl, path, x, lp, positions,
+                          enabled=remat)
         aux = aux + a
     return L.apply_norm(params["ln_f"], x, cfg), aux / cfg.n_layers
 
 
 def forward(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-            path: str = "revet", positions=None):
+            remat: bool = True, path: str = "revet", positions=None):
     """tokens [B, S] -> (logits [B, S, V], mean aux loss)."""
-    x, aux = trunk(params, tokens, cfg, impl, path, positions)
+    x, aux = trunk(params, tokens, cfg, impl, remat, path, positions)
     return L.logits(params["embed"], x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            path: str = "revet", aux_weight: float = 0.01,
+            fused: bool = True):
+    """Next-token cross-entropy plus ``aux_weight`` times the mean
+    load-balance loss."""
+    if fused:
+        x, aux = trunk(params, batch["tokens"], cfg, impl=impl, path=path)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg) \
+            + aux_weight * aux
+    lg, aux = forward(params, batch["tokens"], cfg, impl=impl, path=path)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:]) + aux_weight * aux
 
 
 # -- serving (the dense family's cache) ----------------------------------------

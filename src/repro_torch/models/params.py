@@ -67,6 +67,20 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def unflatten(like, flat: list):
+    """``like``'s structure with its leaves replaced by ``flat``, taken in
+    :func:`leaves` order; dict keys keep ``like``'s order."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, dict):
+            done = {k: build(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        return next(it)
+
+    return build(like)
+
+
 def stack(spec, n: int, axis_name: Optional[str] = "layers"):
     """Prepend a stacking dim (one slice per layer) to every leaf."""
     return tree_map(

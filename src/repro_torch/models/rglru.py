@@ -22,9 +22,11 @@ Scan implementations (``impl``) of ``_rec_block``:
                 default name "assoc" runs the same).
 ``trunk``, ``forward`` and ``prefill`` never pass ``impl`` to the recurrent
 blocks, as in the reference: their ``impl`` reaches only the attention
-blocks, and the scan there is always ``ops.rg_lru_chunked``.  Layers are a
-Python loop over the stacked group and sublayer axes.  The loss waits for
-the training slice.
+blocks, and the scan there is always ``ops.rg_lru_chunked``, under grad
+too.  Layers are a Python loop over the stacked group and sublayer axes.
+Training: ``loss_fn``, with remat per group (its recurrent blocks and its
+attention block) while grad is enabled, the tail blocks kept, as the
+reference's ``jax.checkpoint`` around the group scan's body.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from ..kernels import ops as kops
 from . import layers as L
 from .params import P, resolve_device, stack
 from .ssm import _conv1d
-from .transformer import _positions
+from .transformer import _positions, unstack
 
 F32 = torch.float32
 _C = 8.0   # RG-LRU decay constant (paper value)
@@ -169,27 +171,45 @@ def _attn_block(p, x, cfg: ModelConfig, positions, impl: str):
     return x, kv
 
 
+def _group_fwd(cfg: ModelConfig, impl: str, x, gp, positions):
+    """One group: its recurrent blocks, then its attention block."""
+    for rp in unstack(gp["rec"]):
+        x, _ = _rec_block(rp, x, cfg)
+    return _attn_block(gp["attn"], x, cfg, positions, impl)[0]
+
+
 def trunk(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-          positions=None):
+          remat: bool = True, positions=None):
     """tokens [B, S] -> final hidden states [B, S, D].  ``impl`` is the
-    attention blocks' (the recurrent blocks run their default scan)."""
+    attention blocks' (the recurrent blocks run their default scan).  With
+    ``remat`` each group is recomputed in the backward (only while grad is
+    enabled)."""
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = L.embed(params["embed"], tokens)
-    for kind, p, _, _ in blocks(params, cfg):
-        if kind == "rec":
-            x, _ = _rec_block(p, x, cfg)
-        else:
-            x, _ = _attn_block(p, x, cfg, positions, impl)
+    for gp in unstack(params["groups"]):
+        x = L.remat(_group_fwd, cfg, impl, x, gp, positions, enabled=remat)
+    for rp in unstack(params["tail"]) if "tail" in params else ():
+        x, _ = _rec_block(rp, x, cfg)
     return L.apply_norm(params["ln_f"], x, cfg)
 
 
 def forward(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-            positions=None):
+            remat: bool = True, positions=None):
     """tokens [B, S] -> logits [B, S, V]."""
-    x = trunk(params, tokens, cfg, impl, positions)
+    x = trunk(params, tokens, cfg, impl, remat, positions)
     return L.logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            fused: bool = True):
+    """Mean next-token cross-entropy of ``batch["tokens"]``."""
+    if fused:
+        x = trunk(params, batch["tokens"], cfg, impl=impl)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg)
+    lg = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:])
 
 
 # -- serving --------------------------------------------------------------------

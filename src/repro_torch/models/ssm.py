@@ -15,8 +15,9 @@ Scan implementations (``impl``) of ``trunk``/``forward``:
 ``decode_step`` is the one-step recurrence in plain torch, as in the
 reference.  Layers are a Python loop over the stacked layer axis; one
 layer of each is its own function (``block``, ``prefill_block``,
-``decode_block``: the bodies of the reference's ``lax.scan``s).  The loss
-waits for the training slice.
+``decode_block``: the bodies of the reference's ``lax.scan``s).  Training:
+``loss_fn``, with remat per block while grad is enabled; the chunked and
+naive scans are plain torch, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, resolve_device, stack
-from .transformer import layer_params
+from .transformer import layer_params, unstack
 
 F32 = torch.float32
 IMPLS = ("kernel", "naive", "chunked")
@@ -109,17 +110,32 @@ def block(p, x, cfg: ModelConfig, impl: str):
     return _out(p, x, y, z)
 
 
-def trunk(params, tokens, cfg: ModelConfig, impl: str = "chunked"):
-    """tokens [B, S] -> final hidden states [B, S, D]."""
+def trunk(params, tokens, cfg: ModelConfig, impl: str = "chunked",
+          remat: bool = True):
+    """tokens [B, S] -> final hidden states [B, S, D].  With ``remat``
+    each block is recomputed in the backward (only while grad is
+    enabled)."""
     x = L.embed(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x = block(layer_params(params, i), x, cfg, impl)
+    for lp in unstack(params["layers"]):
+        x = L.remat(block, lp, x, cfg, impl, enabled=remat)
     return L.apply_norm(params["ln_f"], x, cfg)
 
 
-def forward(params, tokens, cfg: ModelConfig, impl: str = "chunked"):
+def forward(params, tokens, cfg: ModelConfig, impl: str = "chunked",
+            remat: bool = True):
     """tokens [B, S] -> logits [B, S, V]."""
-    return L.logits(params["embed"], trunk(params, tokens, cfg, impl), cfg)
+    return L.logits(params["embed"], trunk(params, tokens, cfg, impl, remat),
+                    cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            fused: bool = True):
+    """Mean next-token cross-entropy of ``batch["tokens"]``."""
+    if fused:
+        x = trunk(params, batch["tokens"], cfg, impl=impl)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg)
+    lg = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:])
 
 
 # -- serving: constant-size recurrent state -----------------------------------

@@ -1,8 +1,9 @@
 """Decoder-only dense transformer (starcoder2 / phi3 / qwen3 / qwen2 and the
 LM half of internvl2).  Layers are stacked along a leading axis, as in the
 reference; where the reference scans over that axis, the port loops over
-the layer index.  Forward and serving, with the int8 KV cache; the loss and
-remat come with the training slice.
+the layer index.  Training (``loss_fn``, with the fused vocab-chunked
+cross-entropy by default), the forward with remat per layer while grad is
+enabled, and serving with the int8 KV cache.
 """
 from __future__ import annotations
 
@@ -41,6 +42,18 @@ def layer_params(params, i: int, key: str = "layers") -> dict:
     return take(params[key])
 
 
+def unstack(node) -> list:
+    """Every layer's slice of a stacked tree, as a list of trees: views
+    from one ``unbind`` a leaf, whose backward stacks the layers' grads
+    once (indexing a layer at a time would write a zero-filled stacked
+    grad per layer)."""
+    if isinstance(node, dict):
+        per_key = {k: unstack(v) for k, v in node.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(node))
+
+
 def _layer_fwd(cfg: ModelConfig, impl: str, x, lp, positions):
     h, kv = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
                         positions=positions, impl=impl)
@@ -55,22 +68,37 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def trunk(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-          positions=None):
-    """tokens [B, S] -> final hidden states [B, S, D]."""
+          remat: bool = True, positions=None):
+    """tokens [B, S] -> final hidden states [B, S, D].  With ``remat``
+    each layer is recomputed in the backward (only while grad is
+    enabled)."""
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = L.embed(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x, _ = _layer_fwd(cfg, impl, x, layer_params(params, i), positions)
+    for lp in unstack(params["layers"]):
+        x = L.remat(_layer_fwd, cfg, impl, x, lp, positions,
+                    enabled=remat)[0]
     return L.apply_norm(params["ln_f"], x, cfg)
 
 
 def forward(params, tokens, cfg: ModelConfig, impl: str = "chunked",
-            positions=None):
+            remat: bool = True, positions=None):
     """tokens [B, S] -> logits [B, S, V] (training / prefill trunk)."""
-    x = trunk(params, tokens, cfg, impl, positions)
+    x = trunk(params, tokens, cfg, impl, remat, positions)
     return L.logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            fused: bool = True):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S]: fused
+    over vocab chunks from the final hidden states, or (``fused=False``)
+    from the full float32 logits."""
+    if fused:
+        x = trunk(params, batch["tokens"], cfg, impl=impl)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg)
+    lg = forward(params, batch["tokens"], cfg, impl=impl)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:])
 
 
 # -- serving ------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """VLM backbone (internvl2-1b).  The InternViT frontend is a stub, as in
 the reference: the inputs are precomputed patch embeddings
 [B, n_patches, vit_width]; an MLP projector maps them into the LM, and the
-qwen2-style decoder attends over [patches ; text] causally.  Forward and
-serving only: the loss comes with the training slice.
+qwen2-style decoder attends over [patches ; text] causally.  Training:
+``loss_fn`` over the text positions only, with remat per layer while grad
+is enabled.
 
 With ``impl="kernel"`` prefill runs the flash kernel (on a CUDA tensor)
 over the whole [patches ; text] sequence in every layer.
@@ -40,24 +41,39 @@ def _prefix(params, patch_embeds, tokens):
 
 
 def trunk(params, patch_embeds, tokens, cfg: ModelConfig,
-          impl: str = "chunked"):
-    """-> final hidden states of the TEXT positions [B, S, D]."""
+          impl: str = "chunked", remat: bool = True):
+    """-> final hidden states of the TEXT positions [B, S, D].  With
+    ``remat`` each layer is recomputed in the backward (only while grad is
+    enabled)."""
     b, s = tokens.shape
     npatch = patch_embeds.shape[1]
     x = _prefix(params, patch_embeds, tokens)
     positions = T._positions(b, npatch + s, tokens.device)
-    for i in range(cfg.n_layers):
-        x, _ = T._layer_fwd(cfg, impl, x, T.layer_params(params, i),
-                            positions)
+    for lp in T.unstack(params["layers"]):
+        x = L.remat(T._layer_fwd, cfg, impl, x, lp, positions,
+                    enabled=remat)[0]
     x = L.apply_norm(params["ln_f"], x, cfg)
     return x[:, npatch:]
 
 
 def forward(params, patch_embeds, tokens, cfg: ModelConfig,
-            impl: str = "chunked"):
+            impl: str = "chunked", remat: bool = True):
     """patch_embeds [B, P, vit_width]; tokens [B, S] -> text logits."""
-    x = trunk(params, patch_embeds, tokens, cfg, impl)
+    x = trunk(params, patch_embeds, tokens, cfg, impl, remat)
     return L.logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
+            fused: bool = True):
+    """Mean next-token cross-entropy of the text tokens (the patches have
+    no labels)."""
+    if fused:
+        x = trunk(params, batch["patch_embeds"], batch["tokens"], cfg,
+                  impl=impl)
+        return L.fused_xent_loss(params["embed"], x, batch["tokens"], cfg)
+    lg = forward(params, batch["patch_embeds"], batch["tokens"], cfg,
+                 impl=impl)
+    return L.xent_loss(lg[:, :-1], batch["tokens"][:, 1:])
 
 
 # -- serving: the cache covers [patches ; text] ---------------------------------

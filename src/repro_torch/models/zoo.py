@@ -5,10 +5,10 @@
     zoo.init_params(seed, device)   # the reference's weights, as tensors
     zoo.batch_specs(shape)          # {name: (shape, dtype)} of a batch
     zoo.make_batch(shape, seed)     # the reference's batch, as tensors
+    zoo.loss_fn(params, batch)      # training loss (impl "chunked")
     zoo.prefill / zoo.decode_step / zoo.init_cache
 
-All six families are ported.  Training (``loss_fn``) comes with the
-training slice.
+All six families are ported, training and serving.
 """
 from __future__ import annotations
 
@@ -40,6 +40,12 @@ class Zoo:
 
     def n_params(self) -> int:
         return n_params(self.spec())
+
+    # -- training -----------------------------------------------------------
+    def loss_fn(self, params, batch, impl: str = "chunked"):
+        """The family's ``loss_fn`` (fused cross-entropy, remat) on a batch
+        of ``batch_specs``' keys."""
+        return self.mod.loss_fn(params, batch, self.cfg, impl=impl)
 
     # -- inputs -------------------------------------------------------------
     def batch_specs(self, shape: ShapeConfig) -> dict:

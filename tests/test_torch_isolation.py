@@ -58,7 +58,8 @@ def test_port_imports_without_jax_or_reference():
                 "core.device_vm", "kernels.device_loop", "core.primitives",
                 "serve.async_engine", "distributed.fault_tolerance",
                 "checkpoint.ckpt", "models.encdec", "models.vlm",
-                "serve.traffic", "kernels.graph_count"):
+                "serve.traffic", "kernels.graph_count", "optim.adamw",
+                "optim.compression", "data.pipeline", "launch.train"):
         assert f"repro_torch.{mod}" in walked
 
 
@@ -75,11 +76,15 @@ def test_torch_backend_does_not_fall_back_to_cpu(monkeypatch):
 def test_entry_points_default_to_the_card(monkeypatch):
     """With no backend named, every entry point resolves ``TorchBackend()``
     on CUDA — so on a CUDA-less host it raises instead of running on the
-    CPU; the host oracle runs only when ``"numpy"`` is asked for."""
+    CPU; the host oracle runs only when ``"numpy"`` is asked for.  The
+    data pipeline's batches and the train driver default to the card too
+    (AdamW and compression follow their tensors' device)."""
     from repro_torch.apps import ALL_APPS
     from repro_torch.apps.common import run_app
     from repro_torch.core.compiler import CompileOptions
     from repro_torch.core.vector_vm import VectorVM
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
     from repro_torch.serve.dataflow import DataflowEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert CompileOptions().backend == "torch"
@@ -89,7 +94,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: run_app(app),
                  lambda: lowered.compile(),
                  lambda: VectorVM(lowered.result.dfg),
-                 lambda: DataflowEngine(app.prog)):
+                 lambda: DataflowEngine(app.prog),
+                 lambda: Pipeline(DataConfig(100, 8, 2)).batch(0),
+                 lambda: train.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert run_app(app, backend="numpy").vm.backend.name == "numpy"
