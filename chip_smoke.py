@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke — drive the PyTorch port of Revet (the dataflow executor and its
 open-loop serving, the hash probe, dense-LM, SSM, hybrid, MoE,
-encoder-decoder and VLM serving, and training) on one CUDA card and check
-it end to end.
+encoder-decoder and VLM serving, training, and the distribution layer) on
+one CUDA card and check it end to end.
 
     python3 chip_smoke.py            # from the repository root; needs nvcc
 
@@ -174,6 +174,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              attention on inputs that require grad raises.  The training
              route is the plain chunked one: no hand-written kernel may
              launch in (a)-(e).
+17. distribution — (a) full-width qwen2-0.5b on ``make_host_mesh(1, 1)``
+             under ``set_act_mesh``: a 4 x 512 prefill on the kernel route
+             (24 flash launches, counted from 0; the attention under the
+             mesh one kernel, as captured graph nodes) and 4 greedy decode
+             steps, logits and cache bit-identical to no mesh.  (b)
+             qwen2-0.5b's decode_32k arguments (a 128 x 32768 bf16 K/V
+             cache) allocated on the card: the ``memory_allocated()``
+             delta within 2 MiB a leaf above the dry-run's 1x1 argument
+             bytes.  (c) ``python -m repro_torch.launch.dryrun --mesh
+             both`` in subprocesses (every architecture's decode_32k and
+             long_500k, qwen2-0.5b's train_4k and prefill_32k), beside
+             (a) and (b): every cell passes; per-device bytes against the
+             card's memory, traced FLOPs and seconds.
 
 The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
@@ -3512,6 +3525,214 @@ def phase_train(dev):
     return rec
 
 
+DIST_ARCH = "qwen2-0.5b"
+DIST_PROMPT = (4, 512)             # (a): batch, prompt tokens
+DIST_MAX_LEN = 1024
+DIST_DECODE_STEPS = 4
+# (b): the caching allocator rounds each block up, by at most 2 MiB (a
+# large block is a multiple of 2 MiB, a small one of 512 bytes)
+DIST_ALLOC_SLACK = 2 << 20
+DIST_TIMEOUT_S = 300               # (c): the dry-run subprocesses' limit
+
+
+def _dryrun_cells() -> list[tuple[str, str]]:
+    """Phase (c)'s cells: every architecture's decode_32k (and long_500k
+    where it has one), and qwen2-0.5b's train_4k and prefill_32k."""
+    from repro_torch.configs import ARCHS, cells_for, get_config
+    cells = [(a, s) for a in ARCHS for s in cells_for(get_config(a))
+             if s in ("decode_32k", "long_500k")]
+    return cells + [(DIST_ARCH, "train_4k"), (DIST_ARCH, "prefill_32k")]
+
+
+def _start_dryruns(outdir: Path) -> list:
+    """One ``python -m repro_torch.launch.dryrun --mesh both`` a cell, all
+    started at once (each initialises its own fake process group, apart
+    from this process)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", "both", "--outdir",
+         str(outdir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for cell in _dryrun_cells()]
+
+
+def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
+    """Waits for every dry-run (killing all at the time limit); each must
+    exit 0 with a record per mesh.  Returns the records by cell."""
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    logs, failed = {}, []
+    try:
+        for cell, proc in procs:
+            try:
+                logs[cell] = proc.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))[0]
+            except subprocess.TimeoutExpired:
+                failed.append(f"{cell}: past {DIST_TIMEOUT_S} s")
+                continue
+            if proc.returncode:
+                failed.append(f"{cell}: exit {proc.returncode}: "
+                              f"{logs[cell][-2000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(not failed, f"dry-run cells failed: {failed}")
+    out = {}
+    for arch, shape in _dryrun_cells():
+        for mesh in ("single", "multi"):
+            path = outdir / mesh / f"{arch}__{shape}.json"
+            require(path.exists(), f"no dry-run record {path}")
+            r = json.loads(path.read_text())
+            arg = r["memory_analysis"]["argument_size_in_bytes"]
+            rec = {"chips": r["chips"], "argument_bytes": arg,
+                   "output_bytes": r["memory_analysis"][
+                       "output_size_in_bytes"],
+                   "argument_share_of_card": arg / total_memory,
+                   "traced_flops": r["traced_flops"],
+                   "model_flops": r["model_flops"],
+                   "compute_s": r["roofline"]["compute_s"],
+                   "trace_s": r["trace_s"]}
+            out[f"{mesh}/{arch}/{shape}"] = rec
+            emit({"phase": "distribution", "dryrun": f"{mesh}/{arch}/"
+                  f"{shape}", **rec, "total_memory": total_memory})
+    return out
+
+
+def phase_distribution(dev):
+    """(a) Full-width qwen2-0.5b (random weights drawn on the card) on
+    ``make_host_mesh(1, 1)`` under ``set_act_mesh``: one prefill of 4 x 512
+    tokens on the kernel route (flash counted from 0: one launch a layer;
+    one call of the attention under the mesh is one kernel, the nodes of
+    one captured call), then 4 greedy decode steps; the logits and the
+    cache bit-identical to the same calls with no mesh active.  (b)
+    qwen2-0.5b's decode_32k arguments allocated on the card (parameters,
+    128 x 32768 bf16 K/V cache, token, position): the
+    ``memory_allocated()`` delta equals the dry-run's argument bytes on the
+    1x1 mesh, less at most ``DIST_ALLOC_SLACK`` a leaf of allocator
+    rounding above.  (c) ``python -m repro_torch.launch.dryrun --mesh both``
+    over ``_dryrun_cells()`` in subprocesses, started first and run beside
+    (a) and (b): every cell must pass; each cell's per-device bytes beside
+    the card's ``total_memory``, its ``traced_flops`` and seconds."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import graph_count as graphs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import leaves
+    from repro_torch.models.zoo import get_model
+
+    outdir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(outdir, ignore_errors=True)
+    procs = _start_dryruns(outdir)
+    try:
+        cfg = get_config(DIST_ARCH)
+        zoo = get_model(cfg)
+        params = card_params(zoo.spec(), dev)
+        b, s = DIST_PROMPT
+        gen = torch.Generator(dev).manual_seed(SEED + 23)
+        batch = {"tokens": torch.randint(1, cfg.vocab, (b, s), generator=gen,
+                                         device=dev, dtype=torch.int32)}
+        mesh = make_host_mesh(1, 1)
+        require(mesh.device.type == "cuda" and mesh.device_mesh is None,
+                f"make_host_mesh(1, 1) gave {mesh}")
+
+        def run(on_mesh: bool):
+            sh.set_act_mesh(mesh if on_mesh else None)
+            try:
+                flash_attention.launches = 0
+                lg, cache, pos = zoo.prefill(params, batch, DIST_MAX_LEN,
+                                             impl="kernel")
+                torch.cuda.synchronize()
+                launched = flash_attention.launches
+                logits = [lg]
+                for _ in range(DIST_DECODE_STEPS):
+                    tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                    lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+                    logits.append(lg)
+                torch.cuda.synchronize()
+                return logits, cache, launched
+            finally:
+                sh.set_act_mesh(None)
+
+        t0 = time.perf_counter()
+        logits, cache, launched = run(True)
+        mesh_s = time.perf_counter() - t0
+        plain_logits, plain_cache, plain_launched = run(False)
+        require(launched == plain_launched == cfg.n_layers,
+                f"flash launched {launched} (mesh), {plain_launched} (no "
+                f"mesh) times in the prefill, want {cfg.n_layers}")
+        same = (all(torch.equal(x, y) for x, y in zip(logits, plain_logits))
+                and all(torch.equal(cache[k], plain_cache[k])
+                        for k in cache))
+        require(same, "the 1x1 mesh changed the logits or the cache")
+        lp = T.layer_params(params, 0)
+        x = L.apply_norm(lp["ln1"], L.embed(params["embed"],
+                                            batch["tokens"]), cfg)
+        q, k, v = (t.contiguous() for t in L._project_qkv(
+            lp["attn"], x, cfg, T._positions(b, s, dev)))
+        sh.set_act_mesh(mesh)
+        try:
+            per_call = graphs.launches_per_call(
+                lambda: ops.mha(q, k, v, causal=True, impl="kernel"))
+        finally:
+            sh.set_act_mesh(None)
+        require(per_call == graphs.ONE_KERNEL,
+                f"the attention under the mesh put {per_call} on the card")
+        rec_a = {"flash_launches": launched, "bit_identical": same,
+                  "kernels_per_attention": per_call,
+                  "prefill_and_decode_s": mesh_s,
+                  "logits_shape": list(logits[-1].shape)}
+        emit({"phase": "distribution", "a": rec_a})
+        del params, cache, plain_cache, logits, plain_logits, q, k, v, x
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        # (b) the decode_32k arguments, for real
+        rec = dryrun.analyze_cell(DIST_ARCH, "decode_32k", "host", mesh=mesh,
+                                  save=False)
+        want = rec["memory_analysis"]["argument_size_in_bytes"]
+        require(rec["unused_argument_bytes"] == 0,
+                f"decode_32k leaves unused arguments: {rec}")
+        args = dryrun.cell_program(DIST_ARCH, "decode_32k", mesh)[1]
+        abstract = [t for part in args
+                    for t in (leaves(part) if isinstance(part, dict)
+                              else [part])]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        real = [torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                for t in abstract]
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated() - before
+        del real
+        torch.cuda.empty_cache()
+        slack = DIST_ALLOC_SLACK * len(abstract)
+        require(0 <= delta - want <= slack,
+                f"decode_32k arguments took {delta} bytes on the card, the "
+                f"dry-run counts {want} (allowed rounding {slack})")
+        rec_b = {"argument_bytes": want, "allocated_bytes": delta,
+                  "leaves": len(abstract), "rounding_bytes": delta - want,
+                  "allowed_rounding_bytes": slack}
+        emit({"phase": "distribution", "b": rec_b})
+    except BaseException:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = _finish_dryruns(procs, outdir, total)
+    return {"flash_attention": launched, "a": rec_a, "b": rec_b,
+            "c": cells}
+
+
 def _demangle(names: list[str]) -> list[str]:
     """``kernel<args>`` for each mangled name (the names as they are when
     ``c++filt`` is missing)."""
@@ -3710,6 +3931,7 @@ def main() -> int:
     vlm_lm = timed("vlm_lm", phase_family_lm, dev, VLM_ARCH, VLM_N_PARAMS,
                    _vlm_walk)
     timed("train", phase_train, dev)
+    distribution = timed("distribution", phase_distribution, dev)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t0})
     launches.update({k: lm[k] for k in ("flash_attention",
@@ -3725,7 +3947,8 @@ def main() -> int:
                "async_resident": async_serve["resident"], "lm": lm,
                "ssm_lm": ssm_lm, "hybrid_lm": hybrid,
                "hash_kernel": hash_path, "moe_lm": moe_lm,
-               "encdec_lm": encdec_lm, "vlm_lm": vlm_lm}
+               "encdec_lm": encdec_lm, "vlm_lm": vlm_lm,
+               "distribution": distribution}
     for name, n in resident.items():        # the executor kernels' paths
         launches[name] += n
 

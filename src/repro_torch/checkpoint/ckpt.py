@@ -6,8 +6,9 @@ It is the reference's format (``repro.checkpoint.ckpt``): the leaves are
 flattened in the same order under the same path strings (dict keys sorted,
 list and tuple items by index, joined with ``/``), so a checkpoint written
 by either package loads in the other.  Restore takes the structure of a
-``like`` tree and a target device (the reference's target sharding tree:
-on one card, a device or a tree of devices).
+``like`` tree and where to put it: a device, or a tree of devices or of
+``distributed.sharding.NamedSharding``s (the reference's target sharding
+tree), so a checkpoint written on one mesh loads onto another.
 
 Writes are atomic (tmp dir + rename) and a retention policy keeps the last K
 checkpoints — the crash-restart loop in fault_tolerance.py relies on both.
@@ -22,6 +23,7 @@ import tempfile
 import numpy as np
 import torch
 
+from ..distributed.sharding import NamedSharding
 from ..models.params import resolve_device
 
 # numpy's .npy format can't represent bfloat16 or fp8: store them as raw
@@ -122,12 +124,19 @@ def latest_step(ckpt_dir: str) -> int | None:
     return int(steps[-1].split("_")[1]) if steps else None
 
 
+def _place(t: torch.Tensor, where):
+    if isinstance(where, NamedSharding):
+        return where.distribute(t)
+    return t.to(resolve_device(where, "ckpt.restore"))
+
+
 def restore(ckpt_dir: str, step: int, like_tree, devices=None):
     """Load into the structure of ``like_tree`` (a tree of tensors), each
     leaf cast to its ``like`` leaf's dtype.  ``devices`` places them: one
-    device for every leaf, or a tree of devices of ``like_tree``'s
-    structure; ``None`` is the card (raises without one) — pass ``"cpu"``
-    to restore there."""
+    device or ``NamedSharding`` for every leaf, or a tree of them of
+    ``like_tree``'s structure.  A ``NamedSharding`` lays its leaf out on its
+    mesh (on a one-device mesh: that device).  ``None`` is the card (raises
+    without one) — pass ``"cpu"`` to restore there."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -148,5 +157,5 @@ def restore(ckpt_dir: str, step: int, like_tree, devices=None):
             raise ValueError(
                 f"leaf '{p}': checkpoint {arr.shape} != model {want_shape}")
         t = _to_tensor(arr, entry["dtype"]).to(like.dtype)
-        out.append(t.to(resolve_device(dev, "ckpt.restore")))
+        out.append(_place(t, dev))
     return _unflatten(like_tree, out)

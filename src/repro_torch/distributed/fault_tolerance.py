@@ -139,7 +139,8 @@ class Supervisor:
     optimizer + anything else), as ``ckpt.save`` flattens it;
     ``step_fn(state, step) -> state`` runs one step and may raise.
     ``run``'s ``devices`` is where a restore puts the state (``ckpt.restore``:
-    ``None`` is the card, ``"cpu"`` the host).
+    ``None`` is the card, ``"cpu"`` the host; or a tree of devices or of
+    ``sharding.NamedSharding``s, the reference's ``shardings``).
     """
     ckpt_dir: str
     ckpt_every: int = 50

@@ -54,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed import sharding as _sh
 from ..models.params import resolve_device
 from . import ref as _ref
 from .decode_attention import decode_attention
@@ -678,9 +679,7 @@ def moe_dispatch_combine(tokens, gates, expert_idx, n_experts: int,
 
     ``"kernel"`` dispatches with :func:`moe_dispatch` (the kernel on a CUDA
     tensor, its plain version on a CPU one); ``"scatter"`` scatter-adds the
-    rows, a dropped one adding zero at slot C-1, as the reference.  The
-    reference pins the dispatch buffer to the expert-parallel layout with
-    two ``act_hint`` calls, no-ops on one device; the port has none."""
+    rows, a dropped one adding zero at slot C-1, as the reference."""
     if impl not in MOE_IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r} (have {MOE_IMPLS}; the "
                          "reference's 'pallas' route is 'kernel' here)")
@@ -700,7 +699,11 @@ def moe_dispatch_combine(tokens, gates, expert_idx, n_experts: int,
         dispatched.index_put_((flat_e, slot),
                               torch.where(kept[:, None], gathered, 0),
                               accumulate=True)
+    # EP hint: pin the dispatch buffer to the expert-parallel layout so the
+    # tokens move (all-to-all, O(T*D)) instead of the expert weights
+    dispatched = _sh.act_hint(dispatched, "model", None, None)
     out_e = expert_fn(dispatched)                             # [E, C, D]
+    out_e = _sh.act_hint(out_e, "model", None, None)
     res = torch.where(kept[:, None], out_e[flat_e, slot], 0) \
         * gates.reshape(-1)[:, None]
     return _combine(res, t, k, tokens.dtype)

@@ -117,20 +117,29 @@ def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
 
 # -- serving ---------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, enc_len: int = 4096, device=None):
-    """Zeroed caches on ``device`` (``None``: the card): self-attention K/V
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, enc_len: int = 4096):
+    """The caches as tensors on the ``meta`` device: self-attention K/V
     ``{"k", "v"}`` of [L, B, Hkv, max_len, hd] and cross-attention K/V
-    ``{"xk", "xv"}`` of [L, B, Hkv, enc_len, hd].  ``prefill`` returns its
-    own, whose ``xk``/``xv`` cover its encoder length; decode reads the
-    length from the cache it is given."""
-    dev = resolve_device(device, "init_cache")
+    ``{"xk", "xv"}`` of [L, B, Hkv, enc_len, hd]."""
     kv = (cfg.dec_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
     xkv = (cfg.dec_layers, batch, cfg.n_kv_heads, enc_len, cfg.hd)
-    return {"k": torch.zeros(kv, dtype=dtype, device=dev),
-            "v": torch.zeros(kv, dtype=dtype, device=dev),
-            "xk": torch.zeros(xkv, dtype=dtype, device=dev),
-            "xv": torch.zeros(xkv, dtype=dtype, device=dev)}
+    meta = torch.device("meta")
+    return {"k": torch.empty(kv, dtype=dtype, device=meta),
+            "v": torch.empty(kv, dtype=dtype, device=meta),
+            "xk": torch.empty(xkv, dtype=dtype, device=meta),
+            "xv": torch.empty(xkv, dtype=dtype, device=meta)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, enc_len: int = 4096, device=None):
+    """``abstract_cache``'s leaves zeroed on ``device`` (``None``: the
+    card).  ``prefill`` returns its own, whose ``xk``/``xv`` cover its
+    encoder length; decode reads the length from the cache it is given."""
+    dev = resolve_device(device, "init_cache")
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for k, t in abstract_cache(cfg, batch, max_len, dtype,
+                                       enc_len).items()}
 
 
 def prefill(params, frames, tokens, cfg: ModelConfig, max_len: int,

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as _sh
 from ..kernels import ops as kops
 from .params import P
 
@@ -141,23 +142,42 @@ def attention(p, x, cfg: ModelConfig, positions=None, impl="chunked",
     With ``window`` and S > window, every impl runs the banded
     :func:`_windowed_attention` (the reference's ``"naive"`` computes full
     attention first and then overwrites it with the banded result; the port
-    skips the wasted work).  Otherwise ``ops.mha`` with ``impl``.
-
-    The reference reshards the batch over (data x model) here when the head
-    count does not divide a model mesh axis.  On one device the model axis
-    is 1 (no active mesh), so that branch never runs, and the port leaves
-    it out; it returns with the distribution slice."""
+    skips the wasted work).  Otherwise ``ops.mha`` with ``impl``."""
     b, s, _ = x.shape
+    # Beyond-paper §Perf: when n_heads does not divide the model axis (qwen2:
+    # 14 heads, starcoder2: 36 heads vs 16-way TP), attention would be
+    # replicated across the model axis. Reshard the batch over (data x
+    # model) for the attention body instead: every device computes a
+    # disjoint batch slice with all heads local. Only when the batch
+    # actually divides the full mesh (train_4k yes; prefill_32k's batch 32 <
+    # 256 devices no — there the grouped path is the right one).  Without
+    # an active mesh, or on one device, the branch never runs.
+    full_mesh = (_sh.act_mesh_axis("pod") * _sh.act_mesh_axis("data")
+                 * _sh.act_mesh_axis("model"))
+    reshard = (cfg.n_heads % max(_sh.act_mesh_axis("model"), 1) != 0
+               and kv_override is None
+               and full_mesh > 1 and b % full_mesh == 0)
+    if reshard:
+        x = _sh.act_hint(x, ("pod", "data", "model"), None, None)
+        if positions is not None:
+            positions = _sh.act_hint(positions, ("pod", "data", "model"),
+                                     None)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if kv_override is not None:
         k, v = kv_override
     if window and s > window:
         out = _windowed_attention(q, k, v, window)
+    elif impl == "naive":
+        out = kops.mha(q, k, v, causal=causal, impl="ref")
     else:
-        out = kops.mha(q, k, v, causal=causal,
-                       impl="ref" if impl == "naive" else impl)
+        # under the batch-over-model reshard every head is local: the flat
+        # (heads-in-batch) layout shards better than grouped heads
+        out = kops.mha(q, k, v, causal=causal, impl=impl, flat=reshard)
     out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
-    return out @ p["wo"], (k, v)
+    out = out @ p["wo"]
+    if reshard:
+        out = _sh.act_hint(out, ("pod", "data"), None, None)
+    return out, (k, v)
 
 
 def _windowed_attention(q, k, v, window: int):

@@ -30,8 +30,8 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, stack
-from .transformer import (_positions, init_cache, layer_params,  # noqa: F401
-                          unstack)
+from .transformer import (_positions, abstract_cache,  # noqa: F401
+                          init_cache, layer_params, unstack)
 
 F32 = torch.float32
 

@@ -2,8 +2,11 @@
 
 Every model in the zoo declares its parameters as a nested dict of ``P``
 specs.  From one spec tree we derive:
+* ``abstract(spec)`` — meta tensors of each leaf's shape and dtype (the
+  dry-run: no allocation);
 * ``init(spec, seed, device)`` — concrete initialization;
 * ``n_params(spec)`` — the parameter count;
+* ``pspec_tree(spec, rules)`` — a ``PartitionSpec`` tree;
 * ``from_numpy(tree, device)`` — a tree of numpy arrays (e.g. the JAX
   reference's parameters, bfloat16 included) as torch tensors.
 
@@ -14,9 +17,8 @@ reference does), so the same seed gives bit-identical weights in both
 frameworks.  Leaf ``i`` is the ``i``-th leaf in sorted-key order, the order
 in which ``jax.tree.flatten`` walks a dict.
 
-Logical axes (``vocab, embed, q_heads, kv_heads, ff, ...``) are kept for the
-distribution slice, which maps them onto a mesh; on one device they are
-documentation.
+Logical axes (``vocab, embed, q_heads, kv_heads, ff, ...``) map onto mesh
+axes in ``distributed/sharding.py``.
 """
 from __future__ import annotations
 
@@ -88,6 +90,14 @@ def stack(spec, n: int, axis_name: Optional[str] = "layers"):
         spec)
 
 
+def abstract(spec):
+    """Each leaf as an empty tensor of its shape and dtype on ``meta``."""
+    meta = torch.device("meta")
+    return tree_map(
+        lambda p: torch.empty(p.shape, dtype=_DTYPES[p.dtype], device=meta),
+        spec)
+
+
 def _draw(p: P, rng: np.random.Generator) -> np.ndarray:
     if p.init == "zeros":
         return np.zeros(p.shape, np.float32)
@@ -116,6 +126,17 @@ def init(spec, seed: int = 0, device=None):
 
 def n_params(spec) -> int:
     return sum(int(np.prod(p.shape)) for p in leaves(spec))
+
+
+def pspec_tree(spec, rules: dict[str, Optional[str]]):
+    """Logical axes -> ``sharding.PartitionSpec`` via ``rules``
+    (divisibility-aware filtering happens in distributed/sharding.py)."""
+    from ..distributed.sharding import PartitionSpec
+
+    def one(p: P) -> PartitionSpec:
+        return PartitionSpec(*(rules.get(a) if a else None for a in p.axes))
+
+    return tree_map(one, spec)
 
 
 def from_numpy(tree, device=None):

@@ -214,14 +214,14 @@ def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
 
 # -- serving --------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
-    """Zeroed decode state on ``device`` (``None``: the card): float32
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16):
+    """The decode state as tensors on the ``meta`` device: float32
     recurrent states ``rec_h`` [G, R, B, W] (``tail_h`` [T, B, W]), conv
     tails ``rec_conv`` [G, R, B, K-1, W] (``tail_conv``) and K/V rings
     ``attn_k``/``attn_v`` [G, B, Hkv, min(window, max_len), hd] in
-    ``dtype`` (bfloat16, as the reference's)."""
-    dev = resolve_device(device, "init_cache")
+    ``dtype`` (bfloat16, as the reference's); the ``tail_*`` leaves only
+    where the layers leave a tail."""
     n_rec_pg, n_groups, n_tail = _counts(cfg)
     w = min(cfg.window, max_len)
     shapes = {
@@ -235,8 +235,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         shapes["tail_h"] = ((n_tail, batch, cfg.rnn_width), F32)
         shapes["tail_conv"] = ((n_tail, batch, cfg.d_conv - 1,
                                 cfg.rnn_width), dtype)
-    return {k: torch.zeros(shape, dtype=dt, device=dev)
+    meta = torch.device("meta")
+    return {k: torch.empty(shape, dtype=dt, device=meta)
             for k, (shape, dt) in shapes.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """``abstract_cache``'s leaves zeroed on ``device`` (``None``: the
+    card)."""
+    dev = resolve_device(device, "init_cache")
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for k, t in abstract_cache(cfg, batch, max_len, dtype).items()}
 
 
 def decode_rec_block(p, x, h_st, conv_st, cfg: ModelConfig):

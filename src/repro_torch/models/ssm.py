@@ -140,19 +140,29 @@ def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
 
 # -- serving: constant-size recurrent state -----------------------------------
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16):
+    """The state as tensors on the ``meta`` device (the dry-run's
+    arguments): ``h`` float32, ``conv`` in ``dtype`` — bfloat16 by default
+    here, float32 in ``init_cache``, as in the reference."""
+    del max_len  # state size is sequence-independent
+    meta = torch.device("meta")
+    return {
+        "h": torch.empty((cfg.n_layers, batch, cfg.d_inner, cfg.d_state),
+                         dtype=F32, device=meta),
+        "conv": torch.empty((cfg.n_layers, batch, cfg.d_conv - 1,
+                             cfg.d_inner), dtype=dtype, device=meta),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=F32,
                device=None):
     """Zeroed state ``{"h": [L, B, Di, N] f32, "conv": [L, B, K-1, Di]}`` on
     ``device`` (``None``: the card); ``max_len`` does not matter.  The conv
     window is float32 by default, as the reference's."""
-    del max_len
     dev = resolve_device(device, "init_cache")
-    return {
-        "h": torch.zeros((cfg.n_layers, batch, cfg.d_inner, cfg.d_state),
-                         dtype=F32, device=dev),
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.d_conv - 1,
-                             cfg.d_inner), dtype=dtype, device=dev),
-    }
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for k, t in abstract_cache(cfg, batch, max_len, dtype).items()}
 
 
 def prefill_block(p, x, cfg: ModelConfig):

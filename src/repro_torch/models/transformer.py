@@ -103,15 +103,24 @@ def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
 
 # -- serving ------------------------------------------------------------------
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16):
+    """The KV cache ``{"k", "v"}`` of [L, B, Hkv, max_len, hd] as tensors on
+    the ``meta`` device (the dry-run's arguments)."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    meta = torch.device("meta")
+    return {"k": torch.empty(shape, dtype=dtype, device=meta),
+            "v": torch.empty(shape, dtype=dtype, device=meta)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Zeroed KV cache ``{"k", "v"}`` of [L, B, Hkv, max_len, hd] on
     ``device`` (``None``: the card).  bfloat16 whatever the parameters'
     dtype, as in the reference."""
     dev = resolve_device(device, "init_cache")
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for k, t in abstract_cache(cfg, batch, max_len, dtype).items()}
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int,

@@ -78,6 +78,7 @@ def loss_fn(params, batch, cfg: ModelConfig, impl: str = "chunked",
 
 # -- serving: the cache covers [patches ; text] ---------------------------------
 
+abstract_cache = T.abstract_cache
 init_cache = T.init_cache
 
 

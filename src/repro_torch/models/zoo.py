@@ -2,11 +2,13 @@
 
     zoo = get_model(cfg)
     zoo.spec()                      # parameter spec tree (P leaves)
+    zoo.abstract_params()           # meta tensors of the params (dry-run)
     zoo.init_params(seed, device)   # the reference's weights, as tensors
     zoo.batch_specs(shape)          # {name: (shape, dtype)} of a batch
     zoo.make_batch(shape, seed)     # the reference's batch, as tensors
     zoo.loss_fn(params, batch)      # training loss (impl "chunked")
     zoo.prefill / zoo.decode_step / zoo.init_cache
+    zoo.abstract_cache / zoo.decode_input_specs   # meta tensors (dry-run)
 
 All six families are ported, training and serving.
 """
@@ -19,7 +21,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from . import encdec, moe, rglru, ssm, transformer, vlm
-from .params import init, n_params, resolve_device
+from .params import abstract, init, n_params, resolve_device
 
 _ENC_LEN_CAP = 4096   # encoder length for enc-dec cells (DESIGN.md)
 
@@ -32,6 +34,9 @@ class Zoo:
     # -- parameters ---------------------------------------------------------
     def spec(self):
         return self.mod.model_spec(self.cfg)
+
+    def abstract_params(self):
+        return abstract(self.spec())
 
     def init_params(self, seed: int = 0, device=None):
         """The reference's ``init_params(seed)``, bit for bit, on ``device``
@@ -85,6 +90,10 @@ class Zoo:
             return max_len + self.cfg.n_patches
         return max_len
 
+    def abstract_cache(self, batch: int, max_len: int):
+        return self.mod.abstract_cache(self.cfg, batch,
+                                       self._cache_len(max_len))
+
     def init_cache(self, batch: int, max_len: int, device=None):
         return self.mod.init_cache(self.cfg, batch, self._cache_len(max_len),
                                    device=device)
@@ -103,6 +112,17 @@ class Zoo:
                                     self._cache_len(max_len), impl=impl)
         return self.mod.prefill(params, batch["tokens"], self.cfg, max_len,
                                 impl=impl)
+
+    def decode_input_specs(self, shape: ShapeConfig) -> dict:
+        """One serve_step's arguments at this cell, as tensors on the
+        ``meta`` device."""
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        return {
+            "token": torch.empty((b, 1), dtype=torch.int32, device=meta),
+            "cache": self.abstract_cache(b, s),
+            "position": torch.empty((b,), dtype=torch.int32, device=meta),
+        }
 
 
 _FAMILIES = {

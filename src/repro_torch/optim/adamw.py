@@ -4,8 +4,8 @@ Plain functions over trees of tensors (nested dicts), as the reference's
 ``repro.optim.adamw``: the first and second moments are float32 trees of
 the params' structure on the params' device, ``step`` an int32 scalar
 there.  ``apply`` runs under ``torch.no_grad()`` and returns new trees; it
-mutates nothing in place.  The reference's ``abstract_state`` (the dry-run's
-sharded state) belongs to the distribution slice.
+mutates nothing in place.  ``abstract_state`` is the state's shapes and
+dtypes on the ``meta`` device (the dry-run's arguments).
 """
 from __future__ import annotations
 
@@ -49,6 +49,15 @@ def init_state(params) -> dict:
     dev = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def abstract_state(param_specs) -> dict:
+    """The state of ``param_specs`` (tensors, meta ones in the dry-run) as
+    tensors on ``meta``: float32 ``m`` and ``v``, an int32 ``step``."""
+    meta = torch.device("meta")
+    f32 = lambda p: torch.empty(p.shape, dtype=F32, device=meta)
+    return {"m": tree_map(f32, param_specs), "v": tree_map(f32, param_specs),
+            "step": torch.empty((), dtype=torch.int32, device=meta)}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -1107,3 +1107,47 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
     state, met = step(state, card_batch)
     assert np.isfinite(float(met["loss"])) and int(state["opt"]["step"]) == 1
     assert all(bool(torch.isfinite(t).all()) for t in leaves(state["params"]))
+
+
+@pytest.mark.cuda
+def test_cuda_host_mesh_leaves_serving_bit_identical(cuda_device):
+    """The twin of ``chip_smoke.py``'s ``distribution`` (a) at reduced
+    size: qwen2 on ``make_host_mesh(1, 1)`` under ``set_act_mesh``, a
+    prefill on the kernel route (flash launched once a layer) and 4 greedy
+    decode steps, bit-identical to the same calls with no mesh; and a
+    checkpoint restores onto the mesh's card through a sharding."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.zoo import get_model
+    zoo = get_model(get_reduced("qwen2-0.5b"))
+    params = zoo.init_params(0)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    batch = {"tokens": torch.randint(1, zoo.cfg.vocab, (2, 40), generator=gen,
+                                     device=cuda_device, dtype=torch.int32)}
+    mesh = make_host_mesh(1, 1)
+    assert mesh.device.type == "cuda" and mesh.device_mesh is None
+
+    def run(active):
+        sh.set_act_mesh(active)
+        try:
+            before = flash_attention.launches
+            lg, cache, pos = zoo.prefill(params, batch, 64, impl="kernel")
+            launched = flash_attention.launches - before
+            out = [lg]
+            for _ in range(4):
+                tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+                out.append(lg)
+            return out, cache, launched
+        finally:
+            sh.set_act_mesh(None)
+
+    got, got_cache, launched = run(mesh)
+    want, want_cache, _ = run(None)
+    assert launched == zoo.cfg.n_layers
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(got_cache[k], want_cache[k]) for k in want_cache)
+    placed = sh.replicated(mesh).distribute(torch.arange(6.0))
+    assert placed.device.type == "cuda"

@@ -59,8 +59,34 @@ def test_port_imports_without_jax_or_reference():
                 "serve.async_engine", "distributed.fault_tolerance",
                 "checkpoint.ckpt", "models.encdec", "models.vlm",
                 "serve.traffic", "kernels.graph_count", "optim.adamw",
-                "optim.compression", "data.pipeline", "launch.train"):
+                "optim.compression", "data.pipeline", "launch.train",
+                "distributed.sharding", "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{mod}" in walked
+
+
+def test_dryrun_runs_without_jax_or_reference(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` on one cell and both
+    production meshes with ``jax`` and ``repro`` made unimportable: its
+    fake process groups, meshes, shardings and meta trace need neither."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+            sys.modules[name] = None
+        sys.argv = ["dryrun", "--arch", "qwen2-0.5b", "--shape",
+                    "decode_32k", "--mesh", "both", "--outdir",
+                    {str(tmp_path)!r}]
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+        leaked = sorted(k for k, v in sys.modules.items() if v is not None
+                        and k.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not leaked, leaked
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "dry-run complete" in out.stdout
+    for mesh in ("single", "multi"):
+        assert (tmp_path / mesh / "qwen2-0.5b__decode_32k.json").exists()
 
 
 def test_torch_backend_does_not_fall_back_to_cpu(monkeypatch):
