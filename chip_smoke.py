@@ -184,9 +184,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              delta within 2 MiB a leaf above the dry-run's 1x1 argument
              bytes.  (c) ``python -m repro_torch.launch.dryrun --mesh
              both`` in subprocesses (every architecture's decode_32k and
-             long_500k, qwen2-0.5b's train_4k and prefill_32k), beside
-             (a) and (b): every cell passes; per-device bytes against the
-             card's memory, traced FLOPs and seconds.
+             long_500k, qwen2-0.5b's train_4k and prefill_32k,
+             olmoe-1b-7b's train_4k), beside (a) and (b): every cell's
+             step runs on DTensors and passes; per-device bytes against
+             the card's memory, traced FLOPs, collective bytes by kind and
+             ``collective_s`` (each train cell reducing its gradients),
+             and seconds.
 
 The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
@@ -3537,19 +3540,24 @@ DIST_TIMEOUT_S = 300               # (c): the dry-run subprocesses' limit
 
 def _dryrun_cells() -> list[tuple[str, str]]:
     """Phase (c)'s cells: every architecture's decode_32k (and long_500k
-    where it has one), and qwen2-0.5b's train_4k and prefill_32k."""
+    where it has one), qwen2-0.5b's train_4k (the attention's batch
+    reshard) and prefill_32k (the head split before the view), and
+    olmoe-1b-7b's train_4k (the MoE hints)."""
     from repro_torch.configs import ARCHS, cells_for, get_config
     cells = [(a, s) for a in ARCHS for s in cells_for(get_config(a))
              if s in ("decode_32k", "long_500k")]
-    return cells + [(DIST_ARCH, "train_4k"), (DIST_ARCH, "prefill_32k")]
+    return cells + [(DIST_ARCH, "train_4k"), (DIST_ARCH, "prefill_32k"),
+                    ("olmoe-1b-7b", "train_4k")]
 
 
 def _start_dryruns(outdir: Path) -> list:
     """One ``python -m repro_torch.launch.dryrun --mesh both`` a cell, all
     started at once (each initialises its own fake process group, apart
-    from this process)."""
+    from this process).  Each sees no card: its fake group stands for the
+    production mesh's cards and touches none."""
     import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
     return [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          cell[0], "--shape", cell[1], "--mesh", "both", "--outdir",
@@ -3559,7 +3567,11 @@ def _start_dryruns(outdir: Path) -> list:
 
 def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
     """Waits for every dry-run (killing all at the time limit); each must
-    exit 0 with a record per mesh.  Returns the records by cell."""
+    exit 0 with a record per mesh (each cell's step ran on DTensors, its
+    collectives counted as many times as ``CommDebugMode`` counts them, or
+    the cell failed), and each train cell must reduce its gradients (a
+    nonzero all-reduce or reduce-scatter).  Returns the records by
+    cell."""
     deadline = time.perf_counter() + DIST_TIMEOUT_S
     logs, failed = {}, []
     try:
@@ -3586,6 +3598,11 @@ def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
             require(path.exists(), f"no dry-run record {path}")
             r = json.loads(path.read_text())
             arg = r["memory_analysis"]["argument_size_in_bytes"]
+            coll = r["collective_bytes"]
+            if shape == "train_4k":
+                require(coll.get("all-reduce", 0)
+                        + coll.get("reduce-scatter", 0) > 0,
+                        f"{mesh}/{arch}/{shape} reduced no gradient: {coll}")
             rec = {"chips": r["chips"], "argument_bytes": arg,
                    "output_bytes": r["memory_analysis"][
                        "output_size_in_bytes"],
@@ -3593,6 +3610,9 @@ def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
                    "traced_flops": r["traced_flops"],
                    "model_flops": r["model_flops"],
                    "compute_s": r["roofline"]["compute_s"],
+                   "collective_bytes": coll,
+                   "collective_ops": r["collective_ops"],
+                   "collective_s": r["roofline"]["collective_s"],
                    "trace_s": r["trace_s"]}
             out[f"{mesh}/{arch}/{shape}"] = rec
             emit({"phase": "distribution", "dryrun": f"{mesh}/{arch}/"
@@ -3614,7 +3634,8 @@ def phase_distribution(dev):
     rounding above.  (c) ``python -m repro_torch.launch.dryrun --mesh both``
     over ``_dryrun_cells()`` in subprocesses, started first and run beside
     (a) and (b): every cell must pass; each cell's per-device bytes beside
-    the card's ``total_memory``, its ``traced_flops`` and seconds."""
+    the card's ``total_memory``, its ``traced_flops``, its collective bytes
+    by kind and ``collective_s``, and seconds."""
     import shutil
 
     import torch

@@ -18,12 +18,24 @@ of names (sharded over their product, the first axis major, as in JAX).  A
 over the mesh's ``DeviceMesh``: ``Shard(d)`` for the mesh axis that shards
 dim ``d``, ``Replicate()`` for the rest.  ``torch.distributed.tensor`` is
 imported only where a tensor is laid out.
+
+The models run on DTensors as they run on plain tensors (a launcher runs
+the step under DTensor's ``implicit_replication``, so that a tensor made
+inside it meets a DTensor as ``Replicate``), through a few helpers that
+leave a plain tensor as it is: ``whole_heads``/``merged_heads`` (a view
+that splits a sharded dim), ``reduce_partial``/``reduce_lookup`` (pending
+sums), ``grad_laid_out_as`` (a gradient's layout) and ``per_shard`` (a
+function computed on each device's shards), with the activation hints
+(``act_hint``) under an active mesh.
 """
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
 
 from ..models.params import P, tree_map
 
@@ -272,6 +284,179 @@ def act_mesh_axis(name: str) -> int:
     return int(_ACT_MESH.shape[name])
 
 
+def _dtensor_type():
+    """``DTensor`` once ``torch.distributed.tensor`` is imported, else None
+    (before that no tensor can be one, and nothing imports it here)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return getattr(mod, "DTensor", None)
+
+
+def is_dtensor(x) -> bool:
+    dtensor = _dtensor_type()
+    return dtensor is not None and isinstance(x, dtensor)
+
+
+def whole_heads(x, n_heads: int, dim: int = -1):
+    """``x`` ready for a view that splits its dim ``dim`` into ``n_heads``
+    heads: a ``DTensor`` whose shards of that dim are not whole heads is
+    first replicated along it (an all-gather), since DTensor cannot split
+    an unevenly sharded dim; any other tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    split = [i for i, pl in enumerate(x.placements)
+             if isinstance(pl, Shard) and pl.dim == dim]
+    ways = math.prod(x.device_mesh.size(i) for i in split)
+    if n_heads % ways == 0:
+        return x
+    placements = [Replicate() if i in split else pl
+                  for i, pl in enumerate(x.placements)]
+    return x.redistribute(x.device_mesh, placements)
+
+
+class _GradAs(torch.autograd.Function):
+    """``fn(t)``, its gradient ``grad_fn(g)`` on the way back (``g`` as it
+    is without one): the gradient of a redistribution need not take the
+    layout its input had, and DTensor cannot always make it so."""
+
+    @staticmethod
+    def forward(ctx, t, fn, grad_fn):
+        ctx.grad_fn = grad_fn
+        return fn(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.grad_fn is None else ctx.grad_fn(g)), None, None
+
+
+def merged_heads(x, n_heads: int):
+    """``x``, whose last dim merges ``n_heads`` heads, as it is, but for
+    its gradient on the way back: on a ``DTensor`` that gradient goes
+    through :func:`whole_heads` before the backward of the merge splits the
+    heads again (DTensor cannot split an unevenly sharded dim there
+    either)."""
+    if not is_dtensor(x):
+        return x
+    return _GradAs.apply(x, lambda t: t.view_as(t),
+                         lambda g: whole_heads(g, n_heads))
+
+
+def grad_laid_out_as(x):
+    """``x`` as it is, but for its gradient on the way back: on a
+    ``DTensor`` it is laid out as ``x`` is, for the backward of the view
+    that made ``x`` (DTensor's split of a dim sharded more ways than its
+    outer part has rows gives shards of the wrong shape)."""
+    if not is_dtensor(x):
+        return x
+    mesh, placements = x.device_mesh, tuple(x.placements)
+    return _GradAs.apply(x, lambda t: t.view_as(t),
+                         lambda g: g.redistribute(mesh, placements))
+
+
+def _reduced(x):
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if pl.is_partial() else pl
+                           for pl in x.placements])
+
+
+def reduce_partial(x):
+    """``x`` with every pending sum over a mesh axis (a ``Partial``
+    placement of a ``DTensor``, such as a gather from a sharded dim leaves)
+    reduced to ``Replicate``: an all-reduce, whose gradient is the
+    incoming one as it is (the card's torch cannot make every layout a
+    pending sum again).  Any other tensor is returned as it is."""
+    if not is_dtensor(x) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    return _GradAs.apply(x, _reduced, None)
+
+
+def reduce_lookup(x):
+    """:func:`reduce_partial` of a vocab-parallel lookup's output (rows
+    gathered where a device's vocab shard holds them, zero elsewhere: a
+    masked pending sum).  Its gradient on the way back is reduced first,
+    since DTensor cannot turn a pending sum into a masked one; any tensor
+    that is not a ``DTensor`` is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    return _GradAs.apply(x, _reduced, reduce_partial)
+
+
+# called as ``hook(local_args, n)`` as each :func:`per_shard` region starts,
+# where one is set (:func:`set_per_shard_hook`): the plain shards it computes
+# on, and how many shards of its first argument the mesh holds
+_PER_SHARD_HOOK = None
+
+
+def set_per_shard_hook(hook):
+    """Install ``hook`` (None removes it); returns the one it replaces."""
+    global _PER_SHARD_HOOK
+    old, _PER_SHARD_HOOK = _PER_SHARD_HOOK, hook
+    return old
+
+
+def per_shard(fn, args, dims, out_dims):
+    """``fn(*args)`` where the args are ``DTensor``s: computed on each
+    device's own shards and laid back out as ``DTensor``s, for a function
+    that is independent along some dims of its first argument (the
+    attention's batch and heads, a scan's batch and channels, a scatter's
+    rows).  DTensor would flatten two sharded dims into one for the
+    products inside (which the card's torch refuses), or move data at each
+    step of a scan; the shards need neither.
+
+    ``dims[i]`` maps each of those dims of ``args[0]`` to the matching dim
+    of ``args[i]`` (absent where it has none); ``out_dims`` does the same
+    for each output.  On a mesh axis that shards ``args[0]`` along a mapped
+    dim, every argument is sharded along its matching dim (redistributed
+    if it is not: a counted collective) and replicated where it has none;
+    an output with no matching dim is a pending sum over that axis; a plain
+    argument beside a ``DTensor`` first counts as replicated.  A mesh axis
+    that shards ``args[0]`` along another dim moves to the last mapped dim
+    it divides and no other axis shards (an all-to-all), or else makes it
+    whole.  Plain tensors run ``fn(*args)`` as it is."""
+    first = args[0]
+    if not is_dtensor(first):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = first.device_mesh
+    first = reduce_partial(first)
+    lead = [pl.dim if isinstance(pl, Shard) else None
+            for pl in first.placements]
+    for i, d in enumerate(lead):
+        if d is not None and d not in dims[0]:
+            free = [f for f in dims[0] if f not in lead
+                    and first.shape[f] % mesh.size(i) == 0]
+            lead[i] = free[-1] if free else None
+
+    def layout(dim_map, pending):
+        return [Shard(dim_map[d]) if d is not None and d in dim_map
+                else Partial() if d is not None and pending else Replicate()
+                for d in lead]
+
+    def whole(a):
+        if not isinstance(a, torch.Tensor) or is_dtensor(a):
+            return a
+        return DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    # an argument whole on an axis that splits the first into shards gets
+    # a pending sum of the shards' gradients there
+    local = [a.redistribute(mesh, layout(m, False)).to_local(
+                 grad_placements=layout(m, True))
+             if is_dtensor(a) else a
+             for a, m in zip(map(whole, (first,) + tuple(args[1:])), dims)]
+    if _PER_SHARD_HOOK is not None:
+        _PER_SHARD_HOOK(local, math.prod(
+            mesh.size(i) for i, d in enumerate(lead) if d is not None))
+    out = fn(*local)
+    single = not isinstance(out, tuple)
+    outs = tuple(DTensor.from_local(o, mesh, layout(m, True),
+                                    run_check=False)
+                 for o, m in zip((out,) if single else out, out_dims))
+    return outs[0] if single else outs
+
+
 def act_hint(x, *axes):
     """Redistribute ``x`` under the active mesh; each entry of ``axes`` is a
     mesh-axis name, a tuple of names, or None.  Non-divisible entries are
@@ -297,4 +482,11 @@ def act_hint(x, *axes):
             spec.append(names if len(names) > 1 else names[0])
         else:
             spec.append(None)
-    return x.redistribute(dm, NamedSharding(_ACT_MESH, PS(*spec)).placements())
+    target = NamedSharding(_ACT_MESH, PS(*spec)).placements()
+    # the axes where a whole tensor only needs slicing first (no data
+    # moves), so that what the others move is already sliced
+    sliced = [t if p.is_replicate() and t.is_shard() else p
+              for p, t in zip(x.placements, target)]
+    if sliced != list(x.placements) and sliced != target:
+        x = x.redistribute(dm, sliced)
+    return x.redistribute(dm, target)

@@ -313,7 +313,7 @@ def mha(q, k, v, causal: bool = True, impl: str = "kernel",
         else:
             out = _ref.attention_ref(qf, kf, vf, causal=causal)
         return out.reshape(b, hq, sq, d)
-    qg = q.reshape(b, hkv, hq // hkv, sq, d)
+    qg = _sh.whole_heads(q, hkv, 1).reshape(b, hkv, hq // hkv, sq, d)
     if impl == "chunked":
         out = grouped_chunked_attention(qg, k, v, causal=causal)
     else:
@@ -321,9 +321,34 @@ def mha(q, k, v, causal: bool = True, impl: str = "kernel",
     return out.reshape(b, hq, sq, d)
 
 
+# the dims along which the grouped attention is independent, of q [B, Hkv,
+# G, Sq, D] and their counterparts in k and v [B, Hkv, S, D], for
+# ``sharding.per_shard``: not the queries, whose causal mask needs their
+# place in the whole sequence
+_GROUP_Q = {0: 0, 1: 1, 2: 2}
+_GROUP_KV = {0: 0, 1: 1}
+
+
 def _grouped_ref(qg, k, v, causal, lengths=None):
     """Full-softmax grouped attention. qg [B,Hkv,G,Sq,D]; k/v [B,Hkv,S,D].
-    The causal mask is bottom-right aligned (``tril(k=Skv-Sq)``)."""
+    The causal mask is bottom-right aligned (``tril(k=Skv-Sq)``).  On
+    DTensors, computed on each device's shards (``per_shard``), but for a
+    K/V cache sharded along its keys, which is not gathered: DTensor then
+    gathers the scores instead, a key's worth of each."""
+    if any(getattr(pl, "dim", None) == 2
+           for pl in getattr(k, "placements", ())):
+        return _grouped_ref_local(qg, k, v, causal, lengths)
+    if lengths is None:
+        return _sh.per_shard(
+            lambda q, kk, vv: _grouped_ref_local(q, kk, vv, causal),
+            (qg, k, v), (_GROUP_Q, _GROUP_KV, _GROUP_KV), (_GROUP_Q,))
+    return _sh.per_shard(
+        lambda q, kk, vv, ln: _grouped_ref_local(q, kk, vv, causal, ln),
+        (qg, k, v, lengths), (_GROUP_Q, _GROUP_KV, _GROUP_KV, {0: 0}),
+        (_GROUP_Q,))
+
+
+def _grouped_ref_local(qg, k, v, causal, lengths=None):
     d = qg.shape[-1]
     sc = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) / d ** 0.5
     sq, sk = sc.shape[-2], sc.shape[-1]
@@ -493,15 +518,21 @@ class _GroupedChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qg, k, v, causal, block_k):
-        out, lse = _gchunk_fwd_impl(qg, k, v, causal, block_k)
+        out, lse = _sh.per_shard(
+            lambda *t: _gchunk_fwd_impl(*t, causal, block_k), (qg, k, v),
+            (_GROUP_Q, _GROUP_KV, _GROUP_KV), (_GROUP_Q, _GROUP_Q))
         ctx.save_for_backward(qg, k, v, out, lse)
         ctx.causal, ctx.block_k = causal, block_k
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return (*_gchunk_bwd(*ctx.saved_tensors, dout, ctx.causal,
-                             ctx.block_k), None, None)
+        grads = _sh.per_shard(
+            lambda *t: _gchunk_bwd(*t, ctx.causal, ctx.block_k),
+            (*ctx.saved_tensors, dout),
+            (_GROUP_Q, _GROUP_KV, _GROUP_KV, _GROUP_Q, _GROUP_Q, _GROUP_Q),
+            (_GROUP_Q, _GROUP_KV, _GROUP_KV))
+        return (*grads, None, None)
 
 
 def grouped_chunked_attention(qg, k, v, causal: bool = True,
@@ -529,7 +560,7 @@ def decode_mha(q, k, v, lengths, impl: str = "kernel"):
                                v.reshape(b * hkv, -1, d).contiguous(),
                                lens.contiguous())
         return out.reshape(b, hq, 1, d)
-    qg = q.reshape(b, hkv, hq // hkv, 1, d)
+    qg = _sh.whole_heads(q, hkv, 1).reshape(b, hkv, hq // hkv, 1, d)
     out = _grouped_ref(qg, k, v, causal=False, lengths=lengths)
     return out.reshape(b, hq, 1, d)
 
@@ -583,11 +614,25 @@ def ssm_assoc(x, dt, a, b, c, d, h0):
     return y.to(x.dtype), hT
 
 
+# the scans are independent along the batch and the channels: their dims
+# in the first argument (x or a [B, S, C]) and in each other, for
+# ``sharding.per_shard``
+_SCAN_SEQ = {0: 0, 2: 2}
+
+
 def ssm_chunked(x, dt, a, b, c, d, h0, chunk: int = 128):
     """Selective scan in sequence chunks of ``chunk`` steps, carrying only
     the [B, Di, N] state between them: the [B, C, Di, N] tensors exist one
     chunk at a time.  Any S: the last chunk is just shorter (the reference
-    asserts S % chunk == 0), which is exact."""
+    asserts S % chunk == 0), which is exact.  On DTensors, each device
+    scans its own batch rows and channels (``per_shard``)."""
+    return _sh.per_shard(
+        lambda *t: _ssm_chunked_local(*t, chunk), (x, dt, a, b, c, d, h0),
+        (_SCAN_SEQ, _SCAN_SEQ, {2: 0}, {0: 0}, {0: 0}, {2: 0},
+         {0: 0, 2: 1}), (_SCAN_SEQ, {0: 0, 2: 1}))
+
+
+def _ssm_chunked_local(x, dt, a, b, c, d, h0, chunk):
     f32 = torch.float32
     af, dsk = a.to(f32), d.to(f32)
     h = h0.to(f32)
@@ -632,7 +677,14 @@ def rg_lru_chunked(a, b, h0, chunk: int = 256):
     """The scan in sequence chunks of ``chunk`` steps, carrying only the
     [B, D] state between them.  Any S: the last chunk is just shorter (the
     reference asserts S % chunk == 0), which is exact.  Returns (y in a's
-    dtype, hT float32), the reference's cast points."""
+    dtype, hT float32), the reference's cast points.  On DTensors, each
+    device scans its own batch rows and channels (``per_shard``)."""
+    return _sh.per_shard(lambda *t: _rg_lru_chunked_local(*t, chunk),
+                         (a, b, h0), (_SCAN_SEQ, _SCAN_SEQ, {0: 0, 2: 1}),
+                         (_SCAN_SEQ, {0: 0, 2: 1}))
+
+
+def _rg_lru_chunked_local(a, b, h0, chunk):
     f32 = torch.float32
     h = h0.to(f32)
     ys = []
@@ -695,17 +747,27 @@ def moe_dispatch_combine(tokens, gates, expert_idx, n_experts: int,
                                   flat_pos.to(torch.int32), n_experts,
                                   capacity)
     else:
-        dispatched = tokens.new_zeros((n_experts, capacity, dmodel))
-        dispatched.index_put_((flat_e, slot),
-                              torch.where(kept[:, None], gathered, 0),
-                              accumulate=True)
+        def scatter(rows, e, c):
+            out = rows.new_zeros((n_experts, capacity, dmodel))
+            return out.index_put_((e, c), rows, accumulate=True)
+
+        # on DTensors each device scatters its own rows, the buffer a
+        # pending sum over the axes that shard them (no torch.index_put_
+        # rule takes sharded rows)
+        dispatched = _sh.per_shard(
+            scatter, (torch.where(kept[:, None], gathered, 0), flat_e, slot),
+            ({0: 0}, {0: 0}, {0: 0}), ({},))
     # EP hint: pin the dispatch buffer to the expert-parallel layout so the
     # tokens move (all-to-all, O(T*D)) instead of the expert weights
     dispatched = _sh.act_hint(dispatched, "model", None, None)
     out_e = expert_fn(dispatched)                             # [E, C, D]
     out_e = _sh.act_hint(out_e, "model", None, None)
-    res = torch.where(kept[:, None], out_e[flat_e, slot], 0) \
-        * gates.reshape(-1)[:, None]
+    # a lookup of rows (expert, slot) of out_e; on a DTensor each device
+    # takes the rows its experts hold, and one all-reduce sums them (no
+    # rule of the card's torch indexes the buffer with sharded rows)
+    rows = _sh.reduce_lookup(torch.nn.functional.embedding(
+        flat_e * capacity + slot, out_e.reshape(-1, dmodel)))
+    res = torch.where(kept[:, None], rows, 0) * gates.reshape(-1)[:, None]
     return _combine(res, t, k, tokens.dtype)
 
 

@@ -1,6 +1,6 @@
-"""Multi-pod dry-run: trace every (architecture × input shape) on the
-production meshes, on the ``meta`` device, and extract the roofline raw
-material.  It touches no device.
+"""Multi-pod dry-run: run every (architecture × input shape)'s step
+sharded over the production meshes, on ``DTensor``s of ``meta`` shards,
+and extract the roofline raw material.  It touches no device.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
         --shape train_4k --mesh single
@@ -9,21 +9,33 @@ material.  It touches no device.
 ``main`` first initialises a ``"fake"`` process group of the mesh's size
 (256 or 512 ranks, this process rank 0; no communication happens), as the
 reference sets ``XLA_FLAGS`` for 512 host devices first, and destroys it
-after each mesh.  Per cell this writes
-``artifacts/dryrun_torch/<mesh>/<arch>__<shape>.json`` with:
+after each mesh.  Each argument leaf is laid out by its sharding, the
+step (the models' own ``train_step`` / ``prefill_step`` / ``serve_step``)
+runs on those DTensors under ``set_act_mesh(mesh)``, and each output is
+redistributed to its ``out_shardings`` entry, as ``jax.jit`` forces it.
+Per cell this writes ``artifacts/dryrun_torch/<mesh>/<arch>__<shape>.json``
+with:
   * ``memory_analysis``: per-device argument and output bytes, summed from
-    each leaf's shard (``distribute_tensor`` of the meta leaf by its
-    sharding, then ``to_local()``);
+    each leaf's shard (``to_local()``);
   * ``traced_flops``: the step's FLOPs at global shapes
-    (``torch.utils.flop_counter.FlopCounterMode`` over the traced step,
-    under ``set_act_mesh(mesh)``, so the attention reshard branch is the
-    one the mesh picks), and ``roofline.compute_s`` from them;
+    (``torch.utils.flop_counter.FlopCounterMode`` over the sharded step,
+    each op on a ``per_shard`` region's shards counted once a shard:
+    :class:`GlobalFlops`), and ``roofline.compute_s`` from them;
+  * ``collective_bytes``: the per-device output bytes of every collective
+    DTensor issued (:class:`CollectiveBytes`), by the reference's kinds,
+    with ``total``; ``collective_ops``, their numbers (equal in sum to
+    ``CommDebugMode``'s); ``roofline.collective_s`` = total / (devices x
+    ``LINK_BW``), the reference's formula.  The layers run as a Python
+    loop, so every layer's collectives are counted as they run (the
+    reference scales its while bodies by the layer count);
   * the analytic ``model_flops`` and ``tokens``, as the reference;
   * ``departures``: the reference's keys that have no counterpart without
     a compiled, partitioned program.
 
 A leaf whose sharding cannot be laid out (an axis the mesh lacks, a dim
-that does not divide) fails its cell: that is a sharding bug, as a failed
+that does not divide), an op DTensor has no sharding rule for, a
+collective the counter cannot name, or a train step that reduces no
+gradient fails its cell: that is a sharding bug, as a failed
 ``.lower().compile()`` is in the reference.
 """
 from __future__ import annotations
@@ -39,6 +51,7 @@ import weakref
 import torch
 from torch.utils._pytree import tree_leaves as tree_leaves_any
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..configs import ARCHS, get_config
 from ..configs.base import SHAPES, cells_for
@@ -57,6 +70,9 @@ ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 # (NVIDIA's data sheet, SXM part), per device
 PEAK_FLOPS = 989e12
 HBM_BYTES = 80e9             # the same card's memory ("80 GB")
+# the same card's NVLink 4: 900 GB/s both directions, 450 GB/s each way
+# (NVIDIA's H100 SXM data sheet), per device
+LINK_BW = 4.5e11
 
 MESH_RANKS = {"single": 256, "multi": 512}
 
@@ -70,9 +86,6 @@ DEPARTURES = [
     {"key": "hlo_bytes, roofline.memory_s",
      "why": "XLA's bytes accessed by the fused program; meta tracing "
             "counts no fusion"},
-    {"key": "collective_bytes, roofline.collective_s, _collective_bytes",
-     "why": "the collectives of the SPMD-partitioned HLO; the step is "
-            "traced at global shapes, not run sharded"},
     {"key": "memory_analysis.output_size_in_bytes (in part)",
      "why": "XLA's also counts the output tuple's index table, 8 bytes an "
             "output leaf; the port's is the outputs' shards alone"},
@@ -90,23 +103,18 @@ def build_train_step(zoo, impl: str = "chunked", microbatch: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "lr", "grad_norm"})``: loss and grads
     (``launch.train.loss_and_grads``), then ``adamw.apply``.  With
-    ``microbatch`` > 1 the batch splits along dim 0; grads accumulate in
-    float32 in microbatch order and, like the loss, are divided by the
-    count."""
+    ``microbatch`` > 1 the batch splits along dim 0 (:func:`microbatches`);
+    grads accumulate in float32 in microbatch order and, like the loss,
+    are divided by the count."""
     ocfg = _opt_cfg()
 
     def train_step(params, opt_state, batch):
         if microbatch > 1:
-            split = {k: t.reshape((microbatch, t.shape[0] // microbatch)
-                                  + tuple(t.shape[1:]))
-                     for k, t in batch.items()}
             loss = None
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in leaves(params)]
-            for i in range(microbatch):
-                li, g = loss_and_grads(zoo, params,
-                                       {k: t[i] for k, t in split.items()},
-                                       impl)
+            for part in microbatches(batch, microbatch):
+                li, g = loss_and_grads(zoo, params, part, impl)
                 acc = [a + b.to(torch.float32)
                        for a, b in zip(acc, leaves(g))]
                 loss = li if loss is None else loss + li
@@ -119,6 +127,22 @@ def build_train_step(zoo, impl: str = "chunked", microbatch: int = 1):
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
+
+
+def microbatches(batch: dict, microbatch: int) -> list[dict]:
+    """``batch``'s rows in ``microbatch`` parts, part ``i`` the rows ``i``,
+    ``i + microbatch``, ...: on a ``DTensor`` each device's own rows split
+    alike, so the batch stays sharded along dim 0 and no data moves (parts
+    of whole consecutive rows would each lie on a few devices).  Where a
+    device's rows do not split into ``microbatch`` parts, the batch is
+    made whole first."""
+    split = {}
+    for k, t in batch.items():
+        rows = t.shape[0] // microbatch
+        split[k] = sh.whole_heads(t, rows, 0).reshape(
+            (rows, microbatch) + tuple(t.shape[1:]))
+    return [{k: t[:, i] for k, t in split.items()}
+            for i in range(microbatch)]
 
 
 def build_prefill_step(zoo, max_len: int, impl: str = "chunked"):
@@ -218,20 +242,33 @@ class _Reach(TorchDispatchMode):
     derives from: every op's outputs derive from the union of its tensor
     inputs' sources (an in-place op's output is one of its inputs).  A
     bitmask per tensor, keyed by id and checked by a weak reference, so a
-    reused id never inherits a dead tensor's sources."""
+    reused id never inherits a dead tensor's sources.  A ``DTensor`` is
+    followed through its local shard as well, so that a redistribution
+    (collectives on the shards, then a new ``DTensor`` around the result)
+    keeps its sources."""
 
     def __init__(self, sources):
         super().__init__()
-        self.mask = {id(t): (weakref.ref(t), 1 << i)
-                     for i, t in enumerate(sources)}
+        self.mask = {}
+        for i, t in enumerate(sources):
+            self._mark(t, 1 << i)
+
+    def _mark(self, t, m: int) -> None:
+        for x in (t, getattr(t, "_local_tensor", None)):
+            if isinstance(x, torch.Tensor):
+                if m:
+                    self.mask[id(x)] = (weakref.ref(x), m)
+                else:
+                    self.mask.pop(id(x), None)
 
     def of(self, tensors) -> int:
         m = 0
         for a in tensors:
-            if isinstance(a, torch.Tensor):
-                e = self.mask.get(id(a))
-                if e is not None and e[0]() is a:
-                    m |= e[1]
+            for x in (a, getattr(a, "_local_tensor", None)):
+                if isinstance(x, torch.Tensor):
+                    e = self.mask.get(id(x))
+                    if e is not None and e[0]() is x:
+                        m |= e[1]
         return m
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -239,25 +276,192 @@ class _Reach(TorchDispatchMode):
         m = self.of(tree_leaves_any((args, kwargs)))
         out = func(*args, **kwargs)
         for o in tree_leaves_any(out):
-            if isinstance(o, torch.Tensor):
-                if m:
-                    self.mask[id(o)] = (weakref.ref(o), m)
-                else:
-                    self.mask.pop(id(o), None)
+            self._mark(o, m)
         return out
+
+
+class ShardFlops(TorchDispatchMode):
+    """The FLOPs that ``FlopCounterMode`` (above it) counts once but that
+    every shard computes: an op on the plain shards of a
+    ``sharding.per_shard`` region, or on tensors derived from them (its
+    backward too, whose products take a saved shard), runs on one
+    device's shards, so it adds ``n - 1`` more counts, ``n`` the region's
+    shards.  :meth:`mark` is the region hook; tensors are followed as in
+    :class:`_Reach`, by id, checked by a weak reference."""
+
+    def __init__(self):
+        super().__init__()
+        self.shards = {}
+        self.flops = 0
+
+    def mark(self, tensors, n: int) -> None:
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and n > 1:
+                self.shards[id(t)] = (weakref.ref(t), n)
+
+    def _of(self, t) -> int:
+        e = self.shards.get(id(t))
+        return e[1] if e is not None and e[0]() is t else 1
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        n = max((self._of(a) for a in tree_leaves_any((args, kwargs))
+                 if isinstance(a, torch.Tensor)), default=1)
+        if n > 1:
+            self.mark(tree_leaves_any(out), n)
+            count = flop_registry.get(func._overloadpacket)
+            if count is not None:
+                self.flops += (n - 1) * count(*args, **kwargs, out_val=out)
+        return out
+
+
+class GlobalFlops:
+    """The FLOPs at global shapes of what runs in its context (:meth:`total`):
+    ``FlopCounterMode``, which counts an op on ``DTensor``s at its global
+    shape, above :class:`ShardFlops`, installed as the ``per_shard`` region
+    hook (``sharding.set_per_shard_hook``) while the context lasts.  Below
+    it, a mode sees the ops on the shards that ops on DTensors lower to."""
+
+    def __init__(self):
+        self.counter = FlopCounterMode(display=False)
+        self.shards = ShardFlops()
+        self._hook = None
+
+    def __enter__(self):
+        self._hook = sh.set_per_shard_hook(self.shards.mark)
+        self.shards.__enter__()
+        self.counter.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.counter.__exit__(*exc)
+            self.shards.__exit__(*exc)
+        finally:
+            sh.set_per_shard_hook(self._hook)
+
+    def total(self) -> int:
+        return self.counter.get_total_flops() + self.shards.flops
+
+
+# each functional collective (``torch.ops._c10d_functional`` and its
+# legacy and autograd twins; DTensor's own all-to-all) under the name of
+# the HLO op the reference's parser counts
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional",
+                          "_c10d_functional_autograd", "_dtensor", "c10d")
+# ops of those namespaces that move no data between devices
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Sums the per-device output bytes of every collective that runs in
+    its context, by the reference's kinds (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``), as the
+    reference's ``_collective_bytes`` sums the output shapes of the
+    partitioned HLO's collectives.  As ``CommDebugMode``, it passes an op
+    on ``DTensor``s through (``NotImplemented``), so that it sees the
+    collectives DTensor lowers it to, on the local shards.  An op of a
+    collective namespace it cannot map raises."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: dict[str, int] = {}
+        self.ops: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if getattr(func, "namespace", None) in _COLLECTIVE_NAMESPACES:
+            name = func._opname
+            if name not in _NOT_COLLECTIVES:
+                kind = COLLECTIVE_KINDS.get(name)
+                if kind is None:
+                    raise RuntimeError(f"collective {func} has no kind")
+                n = sum(o.numel() * o.element_size()
+                        for o in tree_leaves_any(out)
+                        if isinstance(o, torch.Tensor))
+                self.bytes[kind] = self.bytes.get(kind, 0) + n
+                self.ops[kind] = self.ops.get(kind, 0) + 1
+        return out
+
+    def totals(self) -> dict:
+        """The reference's ``_collective_bytes`` dict: each kind seen, and
+        ``total``."""
+        return {**self.bytes, "total": sum(self.bytes.values())}
+
+
+def _map_pairs(tree, shardings, fn):
+    """``tree`` with each leaf ``t`` replaced by ``fn(t, sharding)``;
+    ``shardings`` as in :func:`_pairs`."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_pairs(t, s, fn)
+                          for t, s in zip(tree, shardings))
+    if isinstance(tree, dict):
+        if isinstance(shardings, sh.NamedSharding):
+            return {k: _map_pairs(v, shardings, fn) for k, v in tree.items()}
+        return {k: _map_pairs(tree[k], shardings[k], fn) for k in tree}
+    return fn(tree, shardings)
+
+
+def _lay_out(t, s):
+    """``t`` in the layout of ``s``: a ``DTensor`` redistributed to its
+    placements (the collectives ``jax.jit``'s ``out_shardings`` forces),
+    a plain tensor laid out as :meth:`NamedSharding.distribute` does."""
+    if sh.is_dtensor(t):
+        return t.redistribute(t.device_mesh, s.placements())
+    return s.distribute(t)
+
+
+def lay_out(tree, shardings):
+    """Every leaf of ``tree`` in the layout of its sharding (``shardings``
+    of ``tree``'s structure, or one sharding for a whole subtree): a plain
+    tensor laid out (each rank keeps its own shard), a ``DTensor``
+    redistributed."""
+    return _map_pairs(tree, shardings, _lay_out)
+
+
+def call_sharded(fn, args, out_shardings, mesh, act_hints: bool = True):
+    """``fn(*args)`` under ``set_act_mesh(mesh)`` (unless ``act_hints`` is
+    off), its outputs laid out by ``out_shardings``: a cell's step as the
+    reference's ``jax.jit(fn, out_shardings=...)`` runs it, on arguments
+    already laid out (:func:`lay_out`).  A tensor the step makes meets the
+    DTensors as ``Replicate`` (DTensor's ``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    sh.set_act_mesh(mesh if act_hints else None)
+    try:
+        with implicit_replication():
+            return lay_out(fn(*args), out_shardings)
+    finally:
+        sh.set_act_mesh(None)
 
 
 def sharded_bytes(tree, shardings, keep=None) -> int:
     """Bytes of one device's shards of every leaf (of leaf ``i`` only where
-    bit ``i`` of ``keep`` is set, when given): each meta leaf laid out by
-    its sharding (``NamedSharding.distribute``, a ``DTensor`` where the mesh
-    has a ``DeviceMesh``), ``to_local()``'s size summed."""
+    bit ``i`` of ``keep`` is set, when given): each leaf laid out by its
+    sharding (:func:`lay_out`: a meta leaf becomes a ``DTensor`` of meta
+    shards where the mesh has a ``DeviceMesh``), ``to_local()``'s size
+    summed, each shard checked against the sharding's ``local_shape``."""
     total = 0
     for i, (t, s) in enumerate(_pairs(tree, shardings)):
         if keep is not None and not keep >> i & 1:
             continue
-        d = s.distribute(t)
-        local = d.to_local() if hasattr(d, "to_local") else d
+        d = _lay_out(t, s)
+        local = d.to_local() if sh.is_dtensor(d) else d
         if tuple(local.shape) != s.local_shape(t.shape):
             raise ValueError(f"{tuple(t.shape)} under {s.spec}: shard "
                              f"{tuple(local.shape)}, expected "
@@ -269,34 +473,44 @@ def sharded_bytes(tree, shardings, keep=None) -> int:
 def trace_cell(arch: str, shape_name: str, mesh, impl: str = "chunked",
                microbatch: int = 1, act_hints: bool = True,
                kv_int8: bool = False) -> dict:
-    """Lay one cell's arguments out on ``mesh`` and trace its step on meta
-    at global shapes under ``set_act_mesh(mesh)`` (unless ``act_hints`` is
-    off).  Returns the per-device argument and output bytes, the traced
-    FLOPs and the seconds it took."""
-    from torch.utils.flop_counter import FlopCounterMode
+    """Run one cell's step sharded: each argument laid out on ``mesh`` by
+    its sharding (a ``DTensor`` of meta shards where the mesh has a
+    ``DeviceMesh``), the step called on them under ``set_act_mesh(mesh)``
+    (unless ``act_hints`` is off), each output redistributed to its
+    ``out_shardings`` entry.  Returns the per-device argument and output
+    bytes, the FLOPs at global shapes, the collectives' per-device bytes
+    and op counts by kind (equal in number to ``CommDebugMode``'s, or this
+    raises), and the seconds it took."""
+    from torch.distributed.tensor.debug import CommDebugMode
     fn, args, in_shard, out_shard = cell_program(
         arch, shape_name, mesh, impl, microbatch=microbatch, kv_int8=kv_int8)
     t0 = time.perf_counter()
     all_bytes = sharded_bytes(args, in_shard)
-    sh.set_act_mesh(mesh if act_hints else None)
-    try:
-        counter = FlopCounterMode(display=False)
-        reach = _Reach([t for t, _ in _pairs(args, in_shard)])
-        with counter, reach, torch.no_grad():
-            out = fn(*args)
-    finally:
-        sh.set_act_mesh(None)
+    dargs = lay_out(args, in_shard)
+    comm, coll, flops = CommDebugMode(), CollectiveBytes(), GlobalFlops()
+    reach = _Reach([t for t, _ in _pairs(dargs, in_shard)])
+    # the collective counters lowest, so that they see the ops on the
+    # shards that every op on DTensors lowers to
+    with comm, coll, flops, reach, torch.no_grad():
+        out = call_sharded(fn, dargs, out_shard, mesh, act_hints)
+    n_ops = sum(coll.ops.values())
+    if n_ops != comm.get_total_counts():
+        raise RuntimeError(f"{n_ops} collectives counted ({coll.ops}), "
+                           f"CommDebugMode counts "
+                           f"{comm.get_total_counts()}: "
+                           f"{dict(comm.get_comm_counts())}")
     # jit drops the arguments no output depends on (``keep_unused=False``
     # after dead-code elimination), so XLA's argument bytes count only the
     # leaves the step's outputs derive from
     outs = _pairs(out, out_shard)
     arg_bytes = sharded_bytes(args, in_shard, reach.of(t for t, _ in outs))
-    out_bytes = sharded_bytes(out, out_shard)
     return {"argument_size_in_bytes": arg_bytes,
             "unused_argument_bytes": all_bytes - arg_bytes,
-            "output_size_in_bytes": out_bytes,
+            "output_size_in_bytes": sharded_bytes(out, out_shard),
             "output_leaves": len(outs),
-            "traced_flops": counter.get_total_flops(),
+            "traced_flops": flops.total(),
+            "collective_bytes": coll.totals(),
+            "collective_ops": dict(coll.ops),
             "trace_s": time.perf_counter() - t0}
 
 
@@ -327,6 +541,11 @@ def analyze_cell(arch: str, shape_name: str, mesh_kind: str,
         model_flops = 2 * cfg.active_params() * tokens
 
     flops = tr["traced_flops"]
+    coll = tr["collective_bytes"]
+    if shape.kind == "train" and n_chips > 1 and not (
+            coll.get("all-reduce") or coll.get("reduce-scatter")):
+        raise RuntimeError(f"a train step on {n_chips} devices reduced no "
+                           f"gradient: {coll}")
     out = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "chips": n_chips,
@@ -338,7 +557,10 @@ def analyze_cell(arch: str, shape_name: str, mesh_kind: str,
         "model_flops": model_flops,
         "tokens": tokens,
         "traced_flops": flops,
-        "roofline": {"compute_s": flops / (n_chips * PEAK_FLOPS)},
+        "collective_bytes": coll,
+        "collective_ops": tr["collective_ops"],
+        "roofline": {"compute_s": flops / (n_chips * PEAK_FLOPS),
+                     "collective_s": coll["total"] / (n_chips * LINK_BW)},
         "departures": DEPARTURES,
     }
     if save:
@@ -364,9 +586,14 @@ def _table(records: list[dict]) -> str:
     def arg(r):
         return r["memory_analysis"]["argument_size_in_bytes"]
 
+    def kinds(r):
+        c = r["collective_bytes"]
+        return ", ".join(f"{k} {c[k]}" for k in sorted(c) if k != "total")
+
     rows = ["| arch | shape | argument bytes / device | output bytes / "
-            "device | traced_flops | model_flops | compute_s | arguments "
-            "fit 80 GB | trace_s |", "|---|---|---|---|---|---|---|---|---|"]
+            "device | traced_flops | model_flops | compute_s | collective "
+            "bytes / device | by kind | collective_s | arguments fit 80 GB "
+            "| trace_s |", "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for (arch, shape), cell in by_cell.items():
         rows.append(
             f"| {arch} | {shape} | {both(cell, arg)} | "
@@ -374,6 +601,9 @@ def _table(records: list[dict]) -> str:
             f" | {both(cell, lambda r: r['traced_flops'])} | "
             f"{both(cell, lambda r: r['model_flops'])} | "
             f"{both(cell, lambda r: r['roofline']['compute_s'])} | "
+            f"{both(cell, lambda r: r['collective_bytes']['total'])} | "
+            f"{both(cell, kinds)} | "
+            f"{both(cell, lambda r: r['roofline']['collective_s'])} | "
             f"{both(cell, lambda r: 'yes' if arg(r) <= HBM_BYTES else 'no')}"
             f" | {both(cell, lambda r: r['trace_s'])} |")
     return "\n".join(rows)
@@ -425,6 +655,7 @@ def main(argv=None) -> None:
                     records.append(r)
                     print(f"[ok] {tag}: trace={r['trace_s']}s "
                           f"flops={r['traced_flops']:.3e} "
+                          f"coll={r['collective_bytes']}B "
                           f"mem={r['memory_analysis']}", flush=True)
                 except Exception as e:
                     failures.append((tag, str(e)))

@@ -52,18 +52,27 @@ def _device_mesh(device_type: str, dims: tuple[int, ...],
                       mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The 16x16 (or 2x16x16) mesh over the initialised process group;
-    raises unless its world size is the mesh's size.  Its devices are CUDA
-    cards under NCCL, CPU ranks under any other backend (the dry-run's
-    ``"fake"`` group)."""
+def mesh_over_group(dims: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
+    """A mesh of ``dims`` named ``axes`` over the initialised process group,
+    whose world size must be the mesh's size.  Its devices are CPU ranks
+    under gloo and CUDA cards otherwise: under NCCL, and under the dry-run's
+    ``"fake"`` group, which stands for the cards and touches none (so that
+    DTensor lowers a move between sharded dims to an all-to-all, as on the
+    cards, and not to gloo's all-gather)."""
     import torch.distributed as dist
-    dims = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    device_type = ("cuda" if dist.is_initialized()
-                   and dist.get_backend() == "nccl" else "cpu")
+    device_type = ("cpu" if dist.is_initialized()
+                   and dist.get_backend() == "gloo" else "cuda")
     dm = _device_mesh(device_type, dims, axes)
     return Mesh(axes, dict(zip(axes, dims)), torch.device(device_type), dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The 16x16 (or 2x16x16) mesh over the initialised process group
+    (:func:`mesh_over_group`); raises unless its world size is the mesh's
+    size."""
+    dims = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return mesh_over_group(dims, axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:

@@ -155,8 +155,8 @@ def prefill(params, frames, tokens, cfg: ModelConfig, max_len: int,
         x, (k, v), (ek, ev) = dec_layer(
             cfg, impl, x, layer_params(params, i, "dec"), enc_out, positions)
         pad = max_len - s
-        cache["k"].append(torch.nn.functional.pad(k, (0, 0, 0, pad)))
-        cache["v"].append(torch.nn.functional.pad(v, (0, 0, 0, pad)))
+        cache["k"].append(L.pad_dim(k, 2, 0, pad))
+        cache["v"].append(L.pad_dim(v, 2, 0, pad))
         cache["xk"].append(ek)
         cache["xv"].append(ev)
     x = L.apply_norm(params["ln_f"], x, cfg)

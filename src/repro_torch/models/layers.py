@@ -55,9 +55,26 @@ def norm_spec(cfg: ModelConfig, d: Optional[int] = None):
 
 
 def apply_norm(p, x, cfg: ModelConfig):
+    # every block starts here: on a mesh, the residual stream enters it
+    # whole on each device of the model axis, as tensor parallelism keeps
+    # it (left to itself DTensor keeps the sums of the last block's row-
+    # parallel product scattered over d_model, and every product after
+    # them contracts a sharded dim into another pending sum)
+    x = _sh.act_hint(x, ("pod", "data"), *([None] * (x.ndim - 1)))
     if cfg.norm == "layernorm":
         return layer_norm(x, p["w"], p["b"])
     return rms_norm(x, p["w"])
+
+
+def pad_dim(t, dim: int, before: int, after: int):
+    """``t`` with ``before`` and ``after`` zero rows around its dim ``dim``
+    (``F.pad``); on a ``DTensor``, each device pads its own shards, that dim
+    whole on every device (the card's torch cannot plan DTensor's pad for
+    some layouts)."""
+    dim %= t.ndim
+    pads = [0, 0] * (t.ndim - 1 - dim) + [before, after]
+    keep = {d: d for d in range(t.ndim) if d != dim}
+    return _sh.per_shard(lambda a: F.pad(a, pads), (t,), (keep,), (keep,))
 
 
 # ---------------------------------------------------------------------------
@@ -107,9 +124,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, use_rope=True):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd).transpose(1, 2)
-    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    q = _sh.whole_heads(q, hq).reshape(b, s, hq, hd).transpose(1, 2)
+    k = _sh.whole_heads(k, hkv).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = _sh.whole_heads(v, hkv).reshape(b, s, hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"])
         k = rms_norm(k, p["kn"])
@@ -127,8 +144,8 @@ def project_kv(p, x, cfg: ModelConfig):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    k = _sh.whole_heads(k, hkv).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = _sh.whole_heads(v, hkv).reshape(b, s, hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         k = rms_norm(k, p["kn"])
     return k, v
@@ -165,6 +182,21 @@ def attention(p, x, cfg: ModelConfig, positions=None, impl="chunked",
     q, k, v = _project_qkv(p, x, cfg, positions)
     if kv_override is not None:
         k, v = kv_override
+    # On DTensors whose heads cannot stay sharded over the model axis (the
+    # grouped view replicates them), DTensor left to itself shards the
+    # head dim d, the contraction, and all-reduces every block of scores.
+    # Shard the queries' sequence over the model axis instead, in the flat
+    # layout (a grouped einsum would merge that dim away): each device
+    # attends for its own queries to every key (K and V whole on every
+    # device of the model axis), locally.
+    model = max(_sh.act_mesh_axis("model"), 1)
+    seq_shard = (not reshard and not (window and s > window)
+                 and _sh.is_dtensor(q)
+                 and (cfg.n_heads % model or k.shape[1] % model) != 0)
+    if seq_shard:
+        q = _sh.act_hint(q, ("pod", "data"), None, "model", None)
+        k, v = (_sh.act_hint(t, ("pod", "data"), None, None, None)
+                for t in (k, v))
     if window and s > window:
         out = _windowed_attention(q, k, v, window)
     elif impl == "naive":
@@ -172,8 +204,14 @@ def attention(p, x, cfg: ModelConfig, positions=None, impl="chunked",
     else:
         # under the batch-over-model reshard every head is local: the flat
         # (heads-in-batch) layout shards better than grouped heads
-        out = kops.mha(q, k, v, causal=causal, impl=impl, flat=reshard)
-    out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
+        out = kops.mha(q, k, v, causal=causal, impl=impl,
+                       flat=reshard or seq_shard)
+    out = _sh.merged_heads(out.transpose(1, 2).reshape(b, s, -1),
+                           cfg.n_heads).to(x.dtype)
+    if seq_shard:
+        # back from the queries' rows to wo's rows, the features: the
+        # product must not flatten a sharded sequence into the batch
+        out = _sh.act_hint(out, ("pod", "data"), None, "model")
     out = out @ p["wo"]
     if reshard:
         out = _sh.act_hint(out, ("pod", "data"), None, None)
@@ -193,7 +231,7 @@ def _windowed_attention(q, k, v, window: int):
     nb = -(-s // blk)
     pad = nb * blk - s
     if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        q, k, v = (pad_dim(t, 2, 0, pad) for t in (q, k, v))
     qb = q.reshape(b, hq, nb, blk, d)
     kb = k.reshape(b, hq, nb, blk, d)
     vb = v.reshape(b, hq, nb, blk, d)
@@ -241,11 +279,16 @@ def _cache_write(cache, kv, position):
     row ``position[b]`` of batch ``b`` replaced (also a scale cache
     [B, H, S] with kv [B, H, 1]).  Positions past the end write the last
     row, as ``lax.dynamic_update_slice`` clamps them."""
-    out = cache.clone()
-    rows = torch.arange(cache.shape[0], device=cache.device)
     pos = position.long().clamp(0, cache.shape[2] - 1)
-    out[rows, :, pos] = kv[:, :, 0]
-    return out
+    # a masked select: on a DTensor each shard writes its own rows whatever
+    # dim the cache is sharded on (DTensor writes rows in place only into a
+    # dim that is whole on every device); tools/probe_cache_write.py times
+    # it against a clone and an indexed write on the card
+    rows = torch.arange(cache.shape[2], device=cache.device)
+    hit = rows[None, :] == pos[:, None]                          # [B, S]
+    hit = hit.reshape((hit.shape[0], 1, hit.shape[1])
+                      + (1,) * (cache.ndim - 3))
+    return torch.where(hit, kv.to(cache.dtype), cache)
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +332,11 @@ def embed_spec(cfg: ModelConfig) -> dict:
 
 
 def embed(p, tokens):
-    return p["tok"][tokens]
+    # on a DTensor, the vocab-parallel lookup: each device looks up the
+    # rows its vocab shard holds, and one all-reduce sums them at once (its
+    # masked pending sum can be reduced only once), as GSPMD partitions the
+    # gather; an index would move the table instead
+    return _sh.reduce_lookup(F.embedding(tokens, p["tok"]))
 
 
 def logits(p, x, cfg: ModelConfig):
@@ -302,11 +349,43 @@ def logits(p, x, cfg: ModelConfig):
     return lg
 
 
+def _label_hits(lg, labels):
+    """[..., V] booleans, true at each row's label: on a ``DTensor``, laid
+    out as ``lg`` (each device compares its own vocab shard)."""
+    vocab = torch.arange(lg.shape[-1], device=lg.device)
+    return vocab == labels[..., None]
+
+
+def _picked(lg, labels):
+    """``lg``'s entry at each row's label ([..., V] -> [...]): a gather on
+    plain tensors; on a ``DTensor`` a masked sum over the vocab (each device
+    adds its own shard's entry or zeros, then one all-reduce), as GSPMD
+    partitions the gather, since DTensor's gather from a sharded vocab
+    gathers the logits whole first.  The sum is exact: one entry and
+    zeros."""
+    if not _sh.is_dtensor(lg):
+        return torch.gather(lg, -1, labels[..., None])[..., 0]
+    return _sh.reduce_partial(
+        torch.where(_label_hits(lg, labels), lg, 0.0).sum(-1))
+
+
+def _logsumexp(lg):
+    """logsumexp over the last (vocab) dim: torch's on plain tensors; on a
+    ``DTensor`` a max, then an exp-sum over each device's vocab shard, with
+    one all-reduce of each, as GSPMD partitions it (DTensor would gather
+    the vocab whole first)."""
+    if not _sh.is_dtensor(lg):
+        return torch.logsumexp(lg, dim=-1)
+    m = _sh.reduce_partial(lg.amax(-1, keepdim=True))
+    return (m + torch.log(_sh.reduce_partial(
+        torch.exp(lg - m).sum(-1, keepdim=True))))[..., 0]
+
+
 def xent_loss(lg, labels, mask=None):
     """Mean next-token cross-entropy of float32 logits ``lg`` [..., V] at
     int ``labels`` [...], over ``mask`` when given."""
     lp = torch.log_softmax(lg, dim=-1)
-    ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    ll = _picked(lp, labels.long())
     if mask is None:
         return -ll.mean()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1)
@@ -368,8 +447,8 @@ class _FusedXent(torch.autograd.Function):
         for jb in range(s // chunk):
             lg = _xent_chunk_logits(x, w, pad_mask, jb, chunk)
             lc = labels[:, jb * chunk:(jb + 1) * chunk].long()
-            lse = torch.logsumexp(lg, dim=-1)
-            picked = torch.gather(lg, -1, lc[..., None])[..., 0]
+            lse = _logsumexp(lg)
+            picked = _picked(lg, lc)
             total = total + torch.sum(lse - picked)
         ctx.save_for_backward(x, w, labels, pad_mask)
         ctx.chunk = chunk
@@ -387,10 +466,17 @@ class _FusedXent(torch.autograd.Function):
         for jb in range(s // chunk):
             xc = x[:, jb * chunk:(jb + 1) * chunk]
             lc = labels[:, jb * chunk:(jb + 1) * chunk].long()
-            p = torch.softmax(_xent_chunk_logits(x, w, pad_mask, jb, chunk),
-                              dim=-1)
-            p.scatter_add_(-1, lc[..., None], torch.full(
-                lc[..., None].shape, -1.0, device=p.device))   # - one_hot
+            lg = _xent_chunk_logits(x, w, pad_mask, jb, chunk)
+            p = torch.exp(lg - _logsumexp(lg)[..., None]) \
+                if _sh.is_dtensor(lg) else torch.softmax(lg, dim=-1)
+            # - one_hot: in place on plain tensors; on a DTensor, whose
+            # in-place scatter_add_ gives it a layout its shards do not
+            # have, each device subtracts within its own vocab shard
+            if _sh.is_dtensor(p):
+                p = p - _label_hits(p, lc).to(p.dtype)
+            else:
+                p.scatter_add_(-1, lc[..., None], torch.full(
+                    lc[..., None].shape, -1.0, device=p.device))
             dxs.append((torch.einsum("bcv,dv->bcd", p, wf) * scale)
                        .to(x.dtype))
             dw = dw + torch.einsum("bcd,bcv->dv", xc.float(), p) * scale

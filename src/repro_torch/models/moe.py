@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as _sh
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, stack
@@ -75,9 +76,11 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def top_k(probs: torch.Tensor, k: int):
     """The ``k`` largest values along the last axis and their indices, the
     lower index first among equal values, as ``jax.lax.top_k`` orders them
-    (``torch.topk`` promises no order among ties)."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    (``torch.topk`` promises no order among ties).  The values are
+    gathered at the indices, so that the gradient is a gather's (the card's
+    torch makes a sort's gradient as a plain tensor beside a DTensor)."""
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(probs, -1, idx), idx
 
 
 def route(p, toks, cfg: ModelConfig):
@@ -102,7 +105,7 @@ def expert_fn(p, dtype):
 def moe_ff(p, x, cfg: ModelConfig, path: str = "revet"):
     """x [B, S, D] -> ([B, S, D], (router logits, expert indices))."""
     b, s, d = x.shape
-    toks = x.reshape(b * s, d)
+    toks = _sh.grad_laid_out_as(x.reshape(b * s, d))
     logits, gates, eidx = route(p, toks, cfg)
     cap = capacity(cfg, b * s)
     if path == "dense":
@@ -118,9 +121,14 @@ def moe_ff(p, x, cfg: ModelConfig, path: str = "revet"):
 def aux_load_balance_loss(logits, eidx, cfg: ModelConfig) -> torch.Tensor:
     """Switch-style auxiliary loss: E * Σ_e f_e · p_e."""
     pe = torch.softmax(logits, -1).mean(0)
-    fe = torch.zeros(cfg.n_experts, dtype=F32, device=logits.device)
-    fe = fe.index_add(0, eidx.reshape(-1), torch.ones(
-        eidx.numel(), dtype=F32, device=logits.device))
+
+    def counts(e):
+        return torch.zeros(cfg.n_experts, dtype=F32, device=e.device) \
+            .index_add(0, e, torch.ones(e.numel(), dtype=F32,
+                                        device=e.device))
+
+    # on DTensors each device counts its own assignments, a pending sum
+    fe = _sh.per_shard(counts, (eidx.reshape(-1),), ({0: 0},), ({},))
     fe = fe / torch.clamp(fe.sum(), min=1)
     return cfg.n_experts * torch.sum(fe * pe)
 
@@ -184,8 +192,8 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int,
     for i in range(cfg.n_layers):
         x, _, (k, v) = _layer_fwd(cfg, impl, path, x, layer_params(params, i),
                                   positions)
-        ks.append(F.pad(k, (0, 0, 0, max_len - s)))
-        vs.append(F.pad(v, (0, 0, 0, max_len - s)))
+        ks.append(L.pad_dim(k, 2, 0, max_len - s))
+        vs.append(L.pad_dim(v, 2, 0, max_len - s))
     x = L.apply_norm(params["ln_f"], x, cfg)
     lg = L.logits(params["embed"], x[:, -1:], cfg)
     return (lg, {"k": torch.stack(ks), "v": torch.stack(vs)},

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as _sh
 from ..kernels import ops as kops
 from . import layers as L
 from .params import P, resolve_device, stack
@@ -64,7 +65,7 @@ def _conv1d(x, w, b):
     """Causal depthwise conv. x [B, S, Di]; w [K, Di].  Each product and
     each partial sum rounds to x's dtype, as the reference's Python sum."""
     k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = L.pad_dim(x, 1, k - 1, 0)
     out = xp[:, 0:s] * w[0]
     for i in range(1, k):
         out = out + xp[:, i: i + s] * w[i]
@@ -80,7 +81,9 @@ def _mix(p, x, cfg: ModelConfig):
     xi, z = xz[..., :di], xz[..., di:]
     tail = xi[:, -(cfg.d_conv - 1):, :]
     xi = F.silu(_conv1d(xi, p["conv_w"], p["conv_b"]).to(F32)).to(x.dtype)
-    proj = xi @ p["x_proj"]
+    # x_proj contracts the sharded inner dim: its sums over the mesh are
+    # reduced before the scan adds into its slices in place
+    proj = _sh.reduce_partial(xi @ p["x_proj"])
     dt = F.softplus((proj[..., :r] @ p["dt_proj"] + p["dt_bias"]).to(F32))
     return (xi, z, dt, proj[..., r: r + n].to(F32),
             proj[..., r + n:].to(F32), -torch.exp(p["a_log"]), tail)
@@ -206,7 +209,7 @@ def decode_block(p, x, h_st, conv_st, cfg: ModelConfig):
     window = torch.cat([conv_st.to(wdt), xi.to(wdt)], 1)        # [B, K, Di]
     conv = (window * p["conv_w"][None]).sum(1) + p["conv_b"]
     xi1 = F.silu(conv.to(F32)).to(x.dtype)         # [B, Di]
-    proj = xi1 @ p["x_proj"]
+    proj = _sh.reduce_partial(xi1 @ p["x_proj"])   # as in _mix
     dt = F.softplus((proj[..., :r] @ p["dt_proj"]
                      + p["dt_bias"]).to(F32))      # [B, Di]
     bmat = proj[..., r: r + n].to(F32)             # [B, N]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as _sh
 from ..kernels import ops as kops
 from . import layers as L
 from .params import resolve_device, stack
@@ -134,8 +135,8 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int,
         x, (k, v) = _layer_fwd(cfg, impl, x, layer_params(params, i),
                                positions)
         pad = max_len - s
-        ks.append(torch.nn.functional.pad(k, (0, 0, 0, pad)))
-        vs.append(torch.nn.functional.pad(v, (0, 0, 0, pad)))
+        ks.append(L.pad_dim(k, 2, 0, pad))
+        vs.append(L.pad_dim(v, 2, 0, pad))
     x = L.apply_norm(params["ln_f"], x, cfg)
     lg = L.logits(params["embed"], x[:, -1:], cfg)
     return (lg, {"k": torch.stack(ks), "v": torch.stack(vs)},
@@ -216,7 +217,8 @@ def decode_step_q8(params, token, cache, position, cfg: ModelConfig):
         kd = kq.to(torch.bfloat16) * ks[..., None]
         vd = vq.to(torch.bfloat16) * vs[..., None]
         lengths = torch.clamp(position + 1, max=kq.shape[2])
-        out = kops._grouped_ref(q.reshape(b, hkv, hq // hkv, 1, cfg.hd),
+        out = kops._grouped_ref(_sh.whole_heads(q, hkv, 1)
+                                .reshape(b, hkv, hq // hkv, 1, cfg.hd),
                                 kd, vd, causal=False, lengths=lengths)
         out = out.reshape(b, hq, 1, cfg.hd).transpose(1, 2) \
             .reshape(b, 1, -1).to(x.dtype)

@@ -96,8 +96,8 @@ def prefill(params, patch_embeds, tokens, cfg: ModelConfig, max_len: int,
         x, (k, v) = T._layer_fwd(cfg, impl, x, T.layer_params(params, i),
                                  positions)
         pad = max_len - total
-        ks.append(F.pad(k, (0, 0, 0, pad)))
-        vs.append(F.pad(v, (0, 0, 0, pad)))
+        ks.append(L.pad_dim(k, 2, 0, pad))
+        vs.append(L.pad_dim(v, 2, 0, pad))
     x = L.apply_norm(params["ln_f"], x, cfg)
     return (L.logits(params["embed"], x[:, -1:], cfg),
             {"k": torch.stack(ks), "v": torch.stack(vs)},
