@@ -186,10 +186,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              both`` in subprocesses (every architecture's decode_32k and
              long_500k, qwen2-0.5b's train_4k and prefill_32k,
              olmoe-1b-7b's train_4k), beside (a) and (b): every cell's
-             step runs on DTensors and passes; per-device bytes against
-             the card's memory, traced FLOPs, collective bytes by kind and
-             ``collective_s`` (each train cell reducing its gradients),
-             and seconds.
+             step runs on DTensors and passes; per-device argument,
+             temporary and output bytes against the card's memory, traced
+             FLOPs, rank 0's FLOPs and bytes and ``memory_s``, collective
+             bytes by kind and ``collective_s`` (each train cell reducing
+             its gradients), and seconds.  (d) the dry-run's memory
+             against the card's allocator, on a 1x1 mesh at full width
+             (``DIST_MEMORY_CELLS``: qwen2-0.5b's train 8 x 1024, prefill
+             4 x 8192 and decode 8 x 32768, falcon-mamba-7b's decode 8 x
+             32768, olmoe-1b-7b's prefill 2 x 2048): each step's peak of
+             allocated bytes within [A + T - slack, A + T + O + slack], A
+             the arguments, T the temporaries, O the outputs on meta.
 
 The attention phase also holds flash and decode at head dim 128.
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
@@ -3536,6 +3543,15 @@ DIST_DECODE_STEPS = 4
 # large block is a multiple of 2 MiB, a small one of 512 bytes)
 DIST_ALLOC_SLACK = 2 << 20
 DIST_TIMEOUT_S = 300               # (c): the dry-run subprocesses' limit
+# (d): the cells whose dry-run memory the card's allocator checks (arch,
+# kind, batch, sequence), each on a 1x1 mesh at full width
+DIST_MEMORY_CELLS = (("qwen2-0.5b", "train", 8, 1024),
+                     ("qwen2-0.5b", "prefill", 4, 8192),
+                     ("qwen2-0.5b", "decode", 8, 32768),
+                     ("falcon-mamba-7b", "decode", 8, 32768),
+                     ("olmoe-1b-7b", "prefill", 2, 2048))
+# (d): the caching allocator rounds each block up to a multiple of 512 bytes
+ALLOC_ROUNDING = 512
 
 
 def _dryrun_cells() -> list[tuple[str, str]]:
@@ -3603,13 +3619,21 @@ def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
                 require(coll.get("all-reduce", 0)
                         + coll.get("reduce-scatter", 0) > 0,
                         f"{mesh}/{arch}/{shape} reduced no gradient: {coll}")
+            mem = r["memory_analysis"]
+            need = (arg + mem["temp_size_in_bytes"]
+                    + mem["output_size_in_bytes"])
             rec = {"chips": r["chips"], "argument_bytes": arg,
-                   "output_bytes": r["memory_analysis"][
-                       "output_size_in_bytes"],
+                   "temp_bytes": mem["temp_size_in_bytes"],
+                   "output_bytes": mem["output_size_in_bytes"],
                    "argument_share_of_card": arg / total_memory,
+                   "argument_temp_output_share_of_card":
+                       need / total_memory,
                    "traced_flops": r["traced_flops"],
                    "model_flops": r["model_flops"],
                    "compute_s": r["roofline"]["compute_s"],
+                   "hlo_flops": r["hlo_flops"],
+                   "hlo_bytes": r["hlo_bytes"],
+                   "memory_s": r["roofline"]["memory_s"],
                    "collective_bytes": coll,
                    "collective_ops": r["collective_ops"],
                    "collective_s": r["roofline"]["collective_s"],
@@ -3618,6 +3642,115 @@ def _finish_dryruns(procs, outdir: Path, total_memory: int) -> dict:
             emit({"phase": "distribution", "dryrun": f"{mesh}/{arch}/"
                   f"{shape}", **rec, "total_memory": total_memory})
     return out
+
+
+def _cell_arguments(zoo, shape, args, dev):
+    """A cell's arguments on the card, in the structure of its meta
+    ``args``: the parameters drawn by ``card_params``, zero optimiser
+    moments (``adamw.init_state``), the batch of ``zoo.make_batch``; for a
+    decode step random tokens, a zero cache and every row at the cache's
+    last position."""
+    import torch
+    from repro_torch.optim import adamw
+    params = card_params(zoo.spec(), dev)
+    if shape.kind == "train":
+        return (params, adamw.init_state(params),
+                zoo.make_batch(shape, SEED, dev))
+    if shape.kind == "prefill":
+        return params, zoo.make_batch(shape, SEED, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 29)
+    _, token, cache, position = args
+    zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+    return (params,
+            torch.randint(1, zoo.cfg.vocab, tuple(token.shape),
+                          generator=gen, device=dev, dtype=token.dtype),
+            {k: zeros(t) for k, t in cache.items()},
+            torch.full(tuple(position.shape), shape.seq_len - 1,
+                       dtype=position.dtype, device=dev))
+
+
+def _memory_cell(arch, kind, b, s, dev, mesh) -> dict:
+    """(d) for one cell: the dry-run on meta gives A (argument and unused
+    argument bytes), T (temporaries) and O (outputs) on the 1x1 mesh; the
+    same ``cell_program`` step then runs on the card, once to warm up (a
+    workspace it leaves allocated is named), then after
+    ``reset_peak_memory_stats()``: its peak above what was allocated
+    before its arguments must lie in [A + T - slack, A + T + O + slack],
+    slack ``ALLOC_ROUNDING`` an allocation (the step's and the
+    arguments') plus the workspace; the outputs finite.  Beside it, the
+    dry-run's peak with the outputs counted (``live_peak_bytes``), which
+    the card's peak above A should equal up to the slack."""
+    import gc
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.zoo import get_model
+
+    shape = ShapeConfig(f"{kind}_{b}x{s}", s, b, kind)
+    tr = dryrun.trace_cell(arch, shape, mesh)
+    a = tr["argument_size_in_bytes"] + tr["unused_argument_bytes"]
+    t, o = tr["temp_size_in_bytes"], tr["output_size_in_bytes"]
+    fn, args, _, out_shard = dryrun.cell_program(arch, shape, mesh)
+    zoo = get_model(get_config(arch))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    requested_held = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    real = _cell_arguments(zoo, shape, args, dev)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - held
+    n_args = len(tree_leaves(real))
+
+    def step():
+        with torch.no_grad():
+            return dryrun.call_sharded(fn, real, out_shard, mesh)
+
+    out = step()
+    torch.cuda.synchronize()
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # what the warm-up left allocated: a library's workspace (cuBLAS keeps
+    # one for each thread that runs a product, autograd's backward thread
+    # among them) made by this step first
+    workspace = torch.cuda.memory_allocated() - held - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peak_allocated = torch.cuda.max_memory_allocated()
+    stats = torch.cuda.memory_stats()
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(out)
+                 if x.is_floating_point())
+    del out, real
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peak = peak_allocated - held
+    slack = ALLOC_ROUNDING * (tr["allocations"] + n_args) + workspace
+    rec = {"cell": f"{arch}/{shape.name}", "argument_bytes": a,
+           "temp_bytes": t, "output_bytes": o,
+           "max_memory_allocated": peak_allocated, "held_before": held,
+           "peak_above_held": peak,
+           "requested_peak_above_held": stats["requested_bytes.all.peak"]
+           - requested_held,
+           "allocated_argument_bytes": arg_bytes,
+           "workspace_bytes": workspace, "allocations": tr["allocations"],
+           "argument_leaves": n_args, "slack": slack,
+           "low": a + t - slack, "high": a + t + o + slack,
+           "peak_minus_a_t": peak - a - t,
+           "live_peak_bytes": tr["live_peak_bytes"],
+           "peak_minus_a_live_peak": peak - a - tr["live_peak_bytes"],
+           "finite": finite,
+           "trace_s": tr["trace_s"]}
+    emit({"phase": "distribution", "d": rec})
+    require(finite, f"(d) {rec['cell']}: outputs not finite")
+    require(rec["low"] <= peak <= rec["high"],
+            f"(d) {rec['cell']}: peak {peak} outside [A + T - slack, A + T "
+            f"+ O + slack] = [{rec['low']}, {rec['high']}]: {rec}")
+    return rec
 
 
 def phase_distribution(dev):
@@ -3635,7 +3768,8 @@ def phase_distribution(dev):
     over ``_dryrun_cells()`` in subprocesses, started first and run beside
     (a) and (b): every cell must pass; each cell's per-device bytes beside
     the card's ``total_memory``, its ``traced_flops``, its collective bytes
-    by kind and ``collective_s``, and seconds."""
+    by kind and ``collective_s``, and seconds.  (d) After (b):
+    ``_memory_cell`` for each of ``DIST_MEMORY_CELLS``."""
     import shutil
 
     import torch
@@ -3743,6 +3877,10 @@ def phase_distribution(dev):
                   "leaves": len(abstract), "rounding_bytes": delta - want,
                   "allowed_rounding_bytes": slack}
         emit({"phase": "distribution", "b": rec_b})
+        del args, abstract
+
+        # (d) the dry-run's memory against the card's allocator
+        rec_d = [_memory_cell(*cell, dev, mesh) for cell in DIST_MEMORY_CELLS]
     except BaseException:
         for _, proc in procs:
             proc.kill()
@@ -3751,7 +3889,7 @@ def phase_distribution(dev):
     total = torch.cuda.get_device_properties(0).total_memory
     cells = _finish_dryruns(procs, outdir, total)
     return {"flash_attention": launched, "a": rec_a, "b": rec_b,
-            "c": cells}
+            "c": cells, "d": rec_d}
 
 
 def _demangle(names: list[str]) -> list[str]:

@@ -41,12 +41,14 @@ gradient fails its cell: that is a sharding bug, as a failed
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
 import time
 import traceback
 import weakref
+from array import array
 
 import torch
 from torch.utils._pytree import tree_leaves as tree_leaves_any
@@ -73,25 +75,39 @@ HBM_BYTES = 80e9             # the same card's memory ("80 GB")
 # the same card's NVLink 4: 900 GB/s both directions, 450 GB/s each way
 # (NVIDIA's H100 SXM data sheet), per device
 LINK_BW = 4.5e11
+# the same card's HBM3: 3.35 TB/s (NVIDIA's H100 SXM data sheet), per device
+HBM_BW = 3.35e12
 
 MESH_RANKS = {"single": 256, "multi": 512}
 
-# the reference's keys that need a compiled, partitioned program
+# where the port's record parts from the reference's: each reference key
+# the port has no counterpart for, or counts its own way
 DEPARTURES = [
-    {"key": "memory_analysis.temp_size_in_bytes",
-     "why": "XLA's buffer assignment of the compiled program; an eager "
-            "PyTorch step has no such plan"},
     {"key": "memory_analysis.generated_code_size_in_bytes",
-     "why": "no compiled program"},
-    {"key": "hlo_bytes, roofline.memory_s",
-     "why": "XLA's bytes accessed by the fused program; meta tracing "
-            "counts no fusion"},
+     "kind": "no counterpart", "why": "no compiled program"},
+    {"key": "cost_analysis, hlo_size_chars", "kind": "no counterpart",
+     "why": "no HLO"},
+    {"key": "lower_s, compile_s", "kind": "no counterpart",
+     "why": "trace_s in their place"},
     {"key": "memory_analysis.output_size_in_bytes (in part)",
+     "kind": "counted otherwise",
      "why": "XLA's also counts the output tuple's index table, 8 bytes an "
             "output leaf; the port's is the outputs' shards alone"},
-    {"key": "cost_analysis, hlo_size_chars", "why": "no HLO"},
-    {"key": "lower_s, compile_s", "why": "trace_s in their place"},
-    {"key": "hlo_flops", "why": "traced_flops in its place"},
+    {"key": "memory_analysis.temp_size_in_bytes",
+     "kind": "counted otherwise",
+     "why": "the eager step's peak of live storages on rank 0's shards "
+            "that are neither arguments nor outputs (LiveBytes), op by op: "
+            "no fusion, and no argument donated (XLA reuses the train "
+            "step's params and optimiser state and the decode step's "
+            "cache for the outputs)"},
+    {"key": "hlo_flops", "kind": "counted otherwise",
+     "why": "flop_registry's products on rank 0's shards (ShardCost), "
+            "every layer counted where XLA's cost_analysis counts a while "
+            "body once; element-wise work uncounted"},
+    {"key": "hlo_bytes, roofline.memory_s", "kind": "counted otherwise",
+     "why": "each op's tensor inputs and outputs on rank 0's shards "
+            "(ShardCost), views free, every layer counted: no fusion, so "
+            "an upper bound on a fused program's bytes"},
 ]
 
 
@@ -167,10 +183,12 @@ def cell_program(arch: str, shape_name: str, mesh, impl: str = "chunked",
                  microbatch: int = 1, kv_int8: bool = False):
     """One cell's step at global shapes: ``(fn, args, in_shardings,
     out_shardings)``, the arguments as meta tensors, each sharding tree of
-    the structure of ``args`` (a tuple) or of ``fn``'s result."""
+    the structure of ``args`` (a tuple) or of ``fn``'s result.
+    ``shape_name`` names one of ``SHAPES``, or is a ``ShapeConfig``."""
     cfg = get_config(arch)
     zoo = get_model(cfg)
-    shape = SHAPES[shape_name]
+    shape = (SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
     pspec = zoo.spec()
     params_abs = zoo.abstract_params()
     params_shard = sh.param_shardings(pspec, mesh)
@@ -366,14 +384,66 @@ _COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional",
 _NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
-class CollectiveBytes(TorchDispatchMode):
+def _storages(tensors) -> set:
+    """The ids of the storages of ``tensors`` (the Python object of a
+    storage lives as long as the storage, so an id is its own while it
+    does)."""
+    return {id(t.untyped_storage()) for t in tensors
+            if isinstance(t, torch.Tensor)}
+
+
+def _passes_through(func) -> bool:
+    """A collective namespace's op that moves no data: on a device it
+    returns its input (on meta a new tensor of its shape)."""
+    return (getattr(func, "namespace", None) in _COLLECTIVE_NAMESPACES
+            and func._opname in _NOT_COLLECTIVES)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _read_bytes(t) -> int:
+    """The bytes an op reads of input ``t``: its elements, but no more than
+    its storage holds (a broadcast view reads its storage once)."""
+    return min(_nbytes(t), t.untyped_storage().nbytes())
+
+
+class _ShardMode(TorchDispatchMode):
+    """A mode that sees only the ops on the local shards: as
+    ``CommDebugMode``, it passes an op on ``DTensor``s through
+    (``NotImplemented``) to the ops DTensor lowers it to, and it leaves
+    out the ops DTensor's sharding propagation runs on fake tensors.
+    :meth:`observe` sees each of the others after it ran.  Below
+    :class:`GlobalFlops` in the stack: above it, ``FlopCounterMode`` would
+    count the shards' ops instead of the ops on DTensors."""
+
+    def __enter__(self):
+        from torch._guards import active_fake_mode
+        self._fake = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._guards import active_fake_mode
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if active_fake_mode() is self._fake:
+            self.observe(func, args, kwargs, out)
+        return out
+
+    def observe(self, func, args, kwargs, out) -> None:
+        raise NotImplementedError
+
+
+class CollectiveBytes(_ShardMode):
     """Sums the per-device output bytes of every collective that runs in
     its context, by the reference's kinds (``all-reduce``, ``all-gather``,
     ``reduce-scatter``, ``all-to-all``, ``collective-permute``), as the
     reference's ``_collective_bytes`` sums the output shapes of the
-    partitioned HLO's collectives.  As ``CommDebugMode``, it passes an op
-    on ``DTensor``s through (``NotImplemented``), so that it sees the
-    collectives DTensor lowers it to, on the local shards.  An op of a
+    partitioned HLO's collectives, on the local shards.  An op of a
     collective namespace it cannot map raises."""
 
     def __init__(self):
@@ -381,28 +451,143 @@ class CollectiveBytes(TorchDispatchMode):
         self.bytes: dict[str, int] = {}
         self.ops: dict[str, int] = {}
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented
-        out = func(*args, **(kwargs or {}))
-        if getattr(func, "namespace", None) in _COLLECTIVE_NAMESPACES:
-            name = func._opname
-            if name not in _NOT_COLLECTIVES:
-                kind = COLLECTIVE_KINDS.get(name)
-                if kind is None:
-                    raise RuntimeError(f"collective {func} has no kind")
-                n = sum(o.numel() * o.element_size()
-                        for o in tree_leaves_any(out)
-                        if isinstance(o, torch.Tensor))
-                self.bytes[kind] = self.bytes.get(kind, 0) + n
-                self.ops[kind] = self.ops.get(kind, 0) + 1
-        return out
+    def observe(self, func, args, kwargs, out) -> None:
+        if getattr(func, "namespace", None) not in _COLLECTIVE_NAMESPACES \
+                or _passes_through(func):
+            return
+        kind = COLLECTIVE_KINDS.get(func._opname)
+        if kind is None:
+            raise RuntimeError(f"collective {func} has no kind")
+        n = sum(_nbytes(o) for o in tree_leaves_any(out)
+                if isinstance(o, torch.Tensor))
+        self.bytes[kind] = self.bytes.get(kind, 0) + n
+        self.ops[kind] = self.ops.get(kind, 0) + 1
 
     def totals(self) -> dict:
         """The reference's ``_collective_bytes`` dict: each kind seen, and
         ``total``."""
         return {**self.bytes, "total": sum(self.bytes.values())}
+
+
+class LiveBytes(_ShardMode):
+    """The bytes of the storages that the ops on one device's shards
+    allocate, followed until each dies: a storage is added when a
+    non-aliasing op returns it, and taken away when its last reference
+    goes (a weak reference's callback on the storage, whose Python object
+    lives as long as the storage: views, autograd's saved tensors and
+    remat keep it alive as they keep its memory).  Nothing scans the live
+    set, so the cost is one entry an allocation.  Every allocation and
+    free is logged, so that :meth:`temp_bytes` can leave out the storages
+    that turn out to be outputs; ``peak`` counts them all.  A storage that
+    existed before (an argument) is never added, an in-place op on it
+    allocates nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self._serial = {}           # id(storage) -> serial of its entry
+        self._refs = {}             # id(storage) -> weak reference
+        self._users = [0]           # serial -> storages that hold it
+        self.sizes = [0]            # serial -> bytes
+        self._log = array("q")      # +serial allocated, -serial freed
+        self.live = 0
+        self.peak = 0
+
+    @property
+    def allocations(self) -> int:
+        return len(self.sizes) - 1
+
+    def _hold(self, st, serial: int) -> None:
+        key = id(st)
+        self._serial[key] = serial
+        self._refs[key] = weakref.ref(st, functools.partial(self._drop, key))
+        self._users[serial] += 1
+
+    def _drop(self, key, _ref) -> None:
+        serial = self._serial.pop(key)
+        del self._refs[key]
+        self._users[serial] -= 1
+        if not self._users[serial]:
+            self.live -= self.sizes[serial]
+            self._log.append(-serial)
+
+    def observe(self, func, args, kwargs, out) -> None:
+        outs = [o for o in tree_leaves_any(out)
+                if isinstance(o, torch.Tensor)]
+        if _passes_through(func):
+            # the new meta storage stands for its input's
+            src = [a for a in tree_leaves_any(args)
+                   if isinstance(a, torch.Tensor)]
+            serial = self._serial.get(id(src[0].untyped_storage()))
+            if serial is not None:
+                for o in outs:
+                    st = o.untyped_storage()
+                    if id(st) not in self._serial:
+                        self._hold(st, serial)
+            return
+        # a view or an in-place op returns an input's storage
+        ins = _storages(tree_leaves_any((args, kwargs)))
+        for o in outs:
+            st = o.untyped_storage()
+            if id(st) in ins or id(st) in self._serial:
+                continue
+            self.sizes.append(st.nbytes())
+            self._users.append(0)
+            serial = len(self.sizes) - 1
+            self._hold(st, serial)
+            self._log.append(serial)
+            self.live += self.sizes[serial]
+            self.peak = max(self.peak, self.live)
+
+    def temp_bytes(self, outputs) -> int:
+        """The highest sum, over what ran, of live storages that are not
+        storages of ``outputs``: XLA's ``temp_size_in_bytes``, arguments
+        and outputs counted apart (an output ``DTensor`` by its shard)."""
+        skip = {self._serial.get(id(getattr(t, "_local_tensor", t)
+                                    .untyped_storage())) for t in outputs}
+        live = peak = 0
+        for e in self._log:
+            if abs(e) in skip:
+                continue
+            live += self.sizes[e] if e > 0 else -self.sizes[-e]
+            peak = max(peak, live)
+        return peak
+
+
+class ShardCost(_ShardMode):
+    """The FLOPs and bytes of the ops on one device's shards: ``flops`` by
+    ``flop_registry``'s formulas (the products), as ``FlopCounterMode``
+    counts them but on the shards; ``bytes`` each op's distinct tensor
+    inputs and its outputs once (an in-place op's mutated argument read
+    and written), an op that returns a view none, a collective as any
+    other op.  A ``per_shard`` region's ops run on the shards already and
+    count as they are."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+
+    def observe(self, func, args, kwargs, out) -> None:
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.flops += count(*args, **kwargs, out_val=out)
+        if _passes_through(func):
+            return
+        inputs = [a for a in tree_leaves_any((args, kwargs))
+                  if isinstance(a, torch.Tensor)]
+        outs = [o for o in tree_leaves_any(out)
+                if isinstance(o, torch.Tensor)]
+        in_place = any(r.alias_info is not None and r.alias_info.is_write
+                       for r in func._schema.returns)
+        # a view (``_unsafe_view`` declares no alias) moves nothing
+        if not in_place and _storages(outs) & _storages(inputs):
+            return
+        seen, n = set(), 0
+        for a in inputs:
+            if id(a) not in seen:
+                seen.add(id(a))
+                n += _read_bytes(a)
+        self.bytes += n + sum(_nbytes(o) for o in outs)
 
 
 def _map_pairs(tree, shardings, fn):
@@ -478,9 +663,12 @@ def trace_cell(arch: str, shape_name: str, mesh, impl: str = "chunked",
     ``DeviceMesh``), the step called on them under ``set_act_mesh(mesh)``
     (unless ``act_hints`` is off), each output redistributed to its
     ``out_shardings`` entry.  Returns the per-device argument and output
-    bytes, the FLOPs at global shapes, the collectives' per-device bytes
-    and op counts by kind (equal in number to ``CommDebugMode``'s, or this
-    raises), and the seconds it took."""
+    bytes, the peak of its temporaries on rank 0's shards
+    (:class:`LiveBytes`), that peak with the outputs counted, and the
+    storages it allocated, the FLOPs at global
+    shapes, rank 0's FLOPs and bytes (:class:`ShardCost`), the
+    collectives' per-device bytes and op counts by kind (equal in number
+    to ``CommDebugMode``'s, or this raises), and the seconds it took."""
     from torch.distributed.tensor.debug import CommDebugMode
     fn, args, in_shard, out_shard = cell_program(
         arch, shape_name, mesh, impl, microbatch=microbatch, kv_int8=kv_int8)
@@ -488,10 +676,11 @@ def trace_cell(arch: str, shape_name: str, mesh, impl: str = "chunked",
     all_bytes = sharded_bytes(args, in_shard)
     dargs = lay_out(args, in_shard)
     comm, coll, flops = CommDebugMode(), CollectiveBytes(), GlobalFlops()
+    live, cost = LiveBytes(), ShardCost()
     reach = _Reach([t for t, _ in _pairs(dargs, in_shard)])
-    # the collective counters lowest, so that they see the ops on the
-    # shards that every op on DTensors lowers to
-    with comm, coll, flops, reach, torch.no_grad():
+    # the modes on the shards below GlobalFlops, so that they see the ops
+    # on the shards that every op on DTensors lowers to, and it does not
+    with comm, coll, live, cost, flops, reach, torch.no_grad():
         out = call_sharded(fn, dargs, out_shard, mesh, act_hints)
     n_ops = sum(coll.ops.values())
     if n_ops != comm.get_total_counts():
@@ -507,8 +696,13 @@ def trace_cell(arch: str, shape_name: str, mesh, impl: str = "chunked",
     return {"argument_size_in_bytes": arg_bytes,
             "unused_argument_bytes": all_bytes - arg_bytes,
             "output_size_in_bytes": sharded_bytes(out, out_shard),
+            "temp_size_in_bytes": live.temp_bytes(t for t, _ in outs),
+            "live_peak_bytes": live.peak,
             "output_leaves": len(outs),
+            "allocations": live.allocations,
             "traced_flops": flops.total(),
+            "hlo_flops": cost.flops,
+            "hlo_bytes": cost.bytes,
             "collective_bytes": coll.totals(),
             "collective_ops": dict(coll.ops),
             "trace_s": time.perf_counter() - t0}
@@ -552,14 +746,20 @@ def analyze_cell(arch: str, shape_name: str, mesh_kind: str,
         "trace_s": tr["trace_s"],
         "memory_analysis": {
             "argument_size_in_bytes": tr["argument_size_in_bytes"],
-            "output_size_in_bytes": tr["output_size_in_bytes"]},
+            "output_size_in_bytes": tr["output_size_in_bytes"],
+            "temp_size_in_bytes": tr["temp_size_in_bytes"]},
         "unused_argument_bytes": tr["unused_argument_bytes"],
         "model_flops": model_flops,
         "tokens": tokens,
         "traced_flops": flops,
+        "hlo_flops": tr["hlo_flops"],
+        "hlo_bytes": tr["hlo_bytes"],
         "collective_bytes": coll,
         "collective_ops": tr["collective_ops"],
+        # the reference's formulas: memory_s and collective_s divide a
+        # per-device count by the device count
         "roofline": {"compute_s": flops / (n_chips * PEAK_FLOPS),
+                     "memory_s": tr["hlo_bytes"] / (n_chips * HBM_BW),
                      "collective_s": coll["total"] / (n_chips * LINK_BW)},
         "departures": DEPARTURES,
     }
@@ -583,29 +783,41 @@ def _table(records: list[dict]) -> str:
                 for m in ("single", "multi")]
         return vals[0] if vals[0] == vals[1] else "; ".join(vals)
 
-    def arg(r):
-        return r["memory_analysis"]["argument_size_in_bytes"]
+    def mem(r, key):
+        return r["memory_analysis"][key]
+
+    def fits(r):
+        need = sum(mem(r, k) for k in ("argument_size_in_bytes",
+                                       "temp_size_in_bytes",
+                                       "output_size_in_bytes"))
+        return "yes" if need <= HBM_BYTES else "no"
 
     def kinds(r):
         c = r["collective_bytes"]
         return ", ".join(f"{k} {c[k]}" for k in sorted(c) if k != "total")
 
-    rows = ["| arch | shape | argument bytes / device | output bytes / "
-            "device | traced_flops | model_flops | compute_s | collective "
-            "bytes / device | by kind | collective_s | arguments fit 80 GB "
-            "| trace_s |", "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    cols = [("argument bytes / device",
+             lambda r: mem(r, "argument_size_in_bytes")),
+            ("temp bytes / device", lambda r: mem(r, "temp_size_in_bytes")),
+            ("output bytes / device",
+             lambda r: mem(r, "output_size_in_bytes")),
+            ("traced_flops", lambda r: r["traced_flops"]),
+            ("model_flops", lambda r: r["model_flops"]),
+            ("compute_s", lambda r: r["roofline"]["compute_s"]),
+            ("hlo_flops / device", lambda r: r["hlo_flops"]),
+            ("hlo_bytes / device", lambda r: r["hlo_bytes"]),
+            ("memory_s", lambda r: r["roofline"]["memory_s"]),
+            ("collective bytes / device",
+             lambda r: r["collective_bytes"]["total"]),
+            ("by kind", kinds),
+            ("collective_s", lambda r: r["roofline"]["collective_s"]),
+            ("argument + temp + output fit 80 GB", fits),
+            ("trace_s", lambda r: r["trace_s"])]
+    rows = ["| arch | shape | " + " | ".join(c for c, _ in cols) + " |",
+            "|---|---|" + "---|" * len(cols)]
     for (arch, shape), cell in by_cell.items():
-        rows.append(
-            f"| {arch} | {shape} | {both(cell, arg)} | "
-            f"{both(cell, lambda r: r['memory_analysis']['output_size_in_bytes'])}"
-            f" | {both(cell, lambda r: r['traced_flops'])} | "
-            f"{both(cell, lambda r: r['model_flops'])} | "
-            f"{both(cell, lambda r: r['roofline']['compute_s'])} | "
-            f"{both(cell, lambda r: r['collective_bytes']['total'])} | "
-            f"{both(cell, kinds)} | "
-            f"{both(cell, lambda r: r['roofline']['collective_s'])} | "
-            f"{both(cell, lambda r: 'yes' if arg(r) <= HBM_BYTES else 'no')}"
-            f" | {both(cell, lambda r: r['trace_s'])} |")
+        rows.append(f"| {arch} | {shape} | "
+                    + " | ".join(both(cell, get) for _, get in cols) + " |")
     return "\n".join(rows)
 
 
@@ -645,6 +857,8 @@ def main(argv=None) -> None:
                                     f"{arch}__{shape}.json")
                 if args.skip_existing and os.path.exists(path):
                     print(f"[skip] {tag}")
+                    with open(path) as f:
+                        records.append(json.load(f))
                     continue
                 try:
                     r = analyze_cell(arch, shape, mesh_kind, impl=args.impl,
@@ -655,6 +869,8 @@ def main(argv=None) -> None:
                     records.append(r)
                     print(f"[ok] {tag}: trace={r['trace_s']}s "
                           f"flops={r['traced_flops']:.3e} "
+                          f"hlo_flops={r['hlo_flops']:.3e} "
+                          f"hlo_bytes={r['hlo_bytes']:.3e} "
                           f"coll={r['collective_bytes']}B "
                           f"mem={r['memory_analysis']}", flush=True)
                 except Exception as e:

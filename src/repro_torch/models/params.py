@@ -72,15 +72,17 @@ def leaves(tree) -> list:
 def unflatten(like, flat: list):
     """``like``'s structure with its leaves replaced by ``flat``, taken in
     :func:`leaves` order; dict keys keep ``like``'s order."""
-    it = iter(flat)
+    return _unflatten(like, iter(flat))
 
-    def build(node):
-        if isinstance(node, dict):
-            done = {k: build(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        return next(it)
 
-    return build(like)
+def _unflatten(node, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep ``flat``'s tensors alive until the
+    # garbage collector runs
+    if isinstance(node, dict):
+        done = {k: _unflatten(node[k], it) for k in sorted(node)}
+        return {k: done[k] for k in node}
+    return next(it)
 
 
 def stack(spec, n: int, axis_name: Optional[str] = "layers"):

@@ -10,11 +10,16 @@ per-device argument bytes equal to the reference's compiled
 (in a subprocess, started once for the module); the collective counter on
 hand-built programs, by hand and against the reference's HLO parser, and
 on the reduced cells against the reference's ``_collective_bytes``;
-``build_train_step`` with two microbatches against the reference's after
-one step; a failing cell makes ``main()`` exit non-zero.  Each test
+``LiveBytes`` and ``ShardCost`` (rank 0's peak temporaries, FLOPs and
+bytes) on hand-built programs by hand and against the reference's
+``cost_analysis()`` and ``memory_analysis()``, and on one-layer reduced
+cells against the same; ``build_train_step`` with two microbatches
+against the reference's after one step; a failing cell makes ``main()``
+exit non-zero.  Each test
 destroys the process group it makes, so no group leaks into another test
 of the same worker.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -79,6 +84,38 @@ FACTOR = 1.62
 # the hand-built programs, as the reference's side compiles them
 HAND = dict(b=8, s=16, d=32, f=64)
 
+# reduced cells cut to one layer, so that XLA's cost_analysis, which counts
+# a while body once, sees the whole step (the SMALL sequences are one KV
+# block of the reference's chunked attention and one chunk of its xent)
+ONE_LAYER = [("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"),
+             ("qwen2-0.5b", "decode_32k"), ("falcon-mamba-7b", "train_4k"),
+             ("falcon-mamba-7b", "decode_32k"),
+             ("olmoe-1b-7b", "prefill_32k"),
+             ("seamless-m4t-medium", "decode_32k")]
+# the port's count over the reference's stays within these factors, either
+# way, in the ONE_LAYER cells: the widest they part on torch 2.13.
+# FLOPs: the port counts products only (XLA element-wise work and
+# reductions too: olmoe prefill_32k 0.6217598122281998), and DTensor's
+# plans add products (qwen2 train_4k 1.0957811564382012).  Bytes: no
+# fusion (falcon-mamba train_4k 2.5623341987445922), while XLA's CPU
+# compile computes bf16 element-wise work in float32 copies (qwen2
+# decode_32k 0.6972152913107619).  Temporaries: the same float32 copies
+# (seamless decode_32k 0.19030302734279603), and no fusion (qwen2
+# prefill_32k 1.8596410036031867)
+COST_FACTOR = {"hlo_flops": 1.61, "hlo_bytes": 2.57,
+               "temp_size_in_bytes": 5.26}
+
+
+# trace_cell's records of the reduced cells on the 2x4 mesh, kept for the
+# module's later tests
+_TRACED: dict = {}
+
+
+def _traced(arch: str, cell: str, mesh) -> dict:
+    if (arch, cell) not in _TRACED:
+        _TRACED[arch, cell] = dryrun.trace_cell(arch, cell, mesh)
+    return _TRACED[arch, cell]
+
 
 @pytest.fixture
 def mesh_2x4():
@@ -95,11 +132,13 @@ def reference():
     """The reference's side, compiled once in a subprocess on a 2x4 mesh of
     8 host devices: for each of ``MEMORY_CELLS`` its ``memory_analysis()``
     argument and output bytes and ``_collective_bytes(hlo, n_layers)``
-    (its loop scale), and the parser's bytes of the hand-built programs.
+    (its loop scale), the parser's bytes of the hand-built programs, and
+    the FLOPs and bytes of ``cost_analysis()`` and ``memory_analysis()``'s
+    temporaries of the hand-built programs and the ``ONE_LAYER`` cells.
     A function that waits for the subprocess and returns its record, so
     that the port's side runs meanwhile."""
     code = textwrap.dedent(f"""
-        import json, jax, jax.numpy as jnp, numpy as np
+        import dataclasses, json, jax, jax.numpy as jnp, numpy as np
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
         from repro.configs import get_reduced
         from repro.configs.base import ShapeConfig
@@ -124,14 +163,29 @@ def reference():
                                       rd._collective_bytes(c.as_text(),
                                                            layers)]
 
-        def parse(fn, args, ins, outs):
+        def costs(c):
+            return [float(c.cost_analysis()["flops"]),
+                    float(c.cost_analysis()["bytes accessed"]),
+                    int(c.memory_analysis().temp_size_in_bytes)]
+
+        rd.get_config = lambda a: dataclasses.replace(get_reduced(a),
+                                                      n_layers=1)
+        for arch, cell in {ONE_LAYER!r}:
+            out["one/" + arch + "/" + cell] = costs(
+                rd.lower_cell(arch, cell, mesh)[0].compile())
+
+        def compiled(fn, args, ins, outs):
             shard = lambda specs: tuple(NamedSharding(mesh, P(*a))
                                         for a in specs)
             c = jax.jit(fn, in_shardings=shard(ins),
                         out_shardings=(shard(outs) if len(outs) > 1
                                        else shard(outs)[0]))
-            return rd._collective_bytes(c.lower(*args).compile().as_text(),
-                                        1)
+            return c.lower(*args).compile()
+
+        def parse(name, *program):
+            c = compiled(*program)
+            out["cost/" + name] = costs(c)
+            return rd._collective_bytes(c.as_text(), 1)
 
         b, s, d, f = {HAND["b"]}, {HAND["s"]}, {HAND["d"]}, {HAND["f"]}
         sd = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.float32)
@@ -146,14 +200,24 @@ def reference():
                               argnums=(0, 1))(w1, w2)
             return w1 - 0.1 * g1, w2 - 0.1 * g2
 
-        out["hand/mlp"] = parse(mlp, (sd(b, s, d), sd(2, d, f), sd(2, f, d)),
+        def product(x, w):
+            return jax.grad(lambda a, c: (a @ c).sum(), argnums=(0, 1))(x, w)
+
+        out["hand/mlp"] = parse("mlp", mlp,
+                                (sd(b, s, d), sd(2, d, f), sd(2, f, d)),
                                 (("data", None, None), (None, None, "model"),
                                  (None, "model", None)),
                                 (("data", None, None),))
-        out["hand/gather"] = parse(lambda a: a * 2, (sd(b, d),),
+        out["hand/gather"] = parse("gather", lambda a: a * 2, (sd(b, d),),
                                    (("model", None),), ((None, None),))
-        out["hand/train"] = parse(train, (sd(b, s, d), sd(d, f), sd(f, d)),
+        out["hand/train"] = parse("train", train,
+                                  (sd(b, s, d), sd(d, f), sd(f, d)),
                                   (("data", None, None), (), ()), ((), ()))
+        parse("product", product, (sd(b, s, d), sd(d, f)),
+              (("data", None, None), ()), (("data", None, None), ()))
+        parse("tanh", lambda x, w: jnp.tanh(x @ w),
+              (sd(64, 128), sd(128, 256)), (("data", None), (None, "model")),
+              (("data", "model"),))
         print(json.dumps(out))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -181,9 +245,9 @@ def reference():
 
 def test_analyze_cell_on_reduced_configs(reduced, mesh_2x4, tmp_path):
     keys = {"arch", "shape", "mesh", "chips", "trace_s", "memory_analysis",
-            "model_flops", "tokens", "traced_flops", "roofline",
-            "departures", "unused_argument_bytes", "collective_bytes",
-            "collective_ops"}
+            "model_flops", "tokens", "traced_flops", "hlo_flops",
+            "hlo_bytes", "roofline", "departures", "unused_argument_bytes",
+            "collective_bytes", "collective_ops"}
     for arch, cell in (("qwen2-0.5b", "train_4k"),
                        ("qwen2-0.5b", "prefill_32k"),
                        ("recurrentgemma-9b", "decode_32k")):
@@ -201,15 +265,27 @@ def test_analyze_cell_on_reduced_configs(reduced, mesh_2x4, tmp_path):
             "collective-permute"}
         assert r["roofline"] == {"compute_s": r["traced_flops"]
                                  / (8 * 989e12),
+                                 "memory_s": r["hlo_bytes"] / (8 * 3.35e12),
                                  "collective_s": coll["total"] / (8 * 4.5e11)}
+        assert r["hlo_flops"] > 0 and r["hlo_bytes"] > 0
         if cell == "train_4k":       # the gradients are reduced
             assert coll.get("all-reduce", 0) + coll.get("reduce-scatter", 0)
         assert set(r["memory_analysis"]) == {"argument_size_in_bytes",
-                                             "output_size_in_bytes"}
+                                             "output_size_in_bytes",
+                                             "temp_size_in_bytes"}
+        assert r["memory_analysis"]["temp_size_in_bytes"] > 0
+        by_kind = {}
+        for d in r["departures"]:
+            by_kind.setdefault(d["kind"], []).append(d["key"])
+        assert by_kind == {
+            "no counterpart": ["memory_analysis.generated_code_size_in_bytes",
+                               "cost_analysis, hlo_size_chars",
+                               "lower_s, compile_s"],
+            "counted otherwise": [
+                "memory_analysis.output_size_in_bytes (in part)",
+                "memory_analysis.temp_size_in_bytes", "hlo_flops",
+                "hlo_bytes, roofline.memory_s"]}
         gone = " ".join(d["key"] for d in r["departures"])
-        for key in ("temp_size_in_bytes", "generated_code_size_in_bytes",
-                    "hlo_bytes", "memory_s"):
-            assert key in gone
         for key in ("collective_bytes", "collective_s", "_collective_bytes"):
             assert key not in gone
     # the int8 cache and two microbatches trace too
@@ -221,9 +297,12 @@ def test_analyze_cell_on_reduced_configs(reduced, mesh_2x4, tmp_path):
         < bf["memory_analysis"]["argument_size_in_bytes"]
     mb = dryrun.analyze_cell("qwen2-0.5b", "train_4k", "host",
                              mesh=mesh_2x4, save=False, microbatch=2)
-    assert mb["memory_analysis"] == json.loads(
-        (tmp_path / "host" / "qwen2-0.5b__train_4k.json").read_text()
-    )["memory_analysis"]
+    one = json.loads((tmp_path / "host" / "qwen2-0.5b__train_4k.json")
+                     .read_text())["memory_analysis"]
+    assert {k: mb["memory_analysis"][k] for k in ("argument_size_in_bytes",
+                                                  "output_size_in_bytes")} \
+        == {k: one[k] for k in ("argument_size_in_bytes",
+                                "output_size_in_bytes")}
     with pytest.raises(ValueError, match="dense-family"):
         dryrun.analyze_cell("falcon-mamba-7b", "decode_32k", "host",
                             mesh=mesh_2x4, save=False, kv_int8=True)
@@ -264,13 +343,9 @@ def test_argument_bytes_match_reference_memory_analysis(reduced, mesh_2x4,
     ``memory_analysis().argument_size_in_bytes`` exactly.  Output bytes
     equal XLA's less its output tuple's index table, 8 bytes an output
     leaf (a departure the JSON names)."""
-    got = {}
-    for arch, cell in MEMORY_CELLS:
-        r = dryrun.trace_cell(arch, cell, mesh_2x4)
-        got[f"{arch}/{cell}"] = r
-    want = {tag: v[:2] for tag, v in reference().items()
-            if not tag.startswith("hand/")}
-    assert len(want) == len(MEMORY_CELLS)
+    got = {f"{arch}/{cell}": _traced(arch, cell, mesh_2x4)
+           for arch, cell in MEMORY_CELLS}
+    want = {f"{a}/{c}": reference()[f"{a}/{c}"][:2] for a, c in MEMORY_CELLS}
     for tag, (arg, out) in want.items():
         r = got[tag]
         assert r["argument_size_in_bytes"] == arg, tag
@@ -400,6 +475,169 @@ def test_collective_bytes_against_reference(reduced, mesh_2x4, reference,
             ratio = got[tag]["total"] / want[tag][2]["total"]
             assert 1 / FACTOR <= ratio <= FACTOR, (tag, got[tag],
                                                    want[tag][2])
+
+
+def _counted(fn):
+    """``fn()``'s peak and temporary bytes (``LiveBytes``, its result the
+    outputs), FLOPs and bytes (``ShardCost``) on the shards."""
+    with dryrun.LiveBytes() as live, dryrun.ShardCost() as cost:
+        out = fn()
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    return live.peak, live.temp_bytes(outs), cost.flops, cost.bytes
+
+
+def test_live_bytes_and_shard_cost_on_hand_built_programs(mesh_2x4,
+                                                          reference):
+    """``LiveBytes`` and ``ShardCost`` on hand-built programs, each count by
+    hand from the ops that run on rank 0's shards (float32, F = 4 bytes):
+    a chain of products on plain meta tensors; the two-layer column- then
+    row-parallel MLP and the data-parallel train step of
+    ``test_collective_counter_on_hand_built_programs``; a ``per_shard``
+    product, forward and backward.  Against the reference's compiled
+    ``cost_analysis()`` on the same shardings: FLOPs equal on
+    ``tanh(x @ w)`` of 64x128 @ 128x256 on ``P("data", None)``,
+    ``P(None, "model")`` (the tanh uncounted on both sides), bytes too;
+    elsewhere they part by what each side runs, counted below."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    dm = mesh_2x4.device_mesh
+    b, s, d, f = HAND["b"], HAND["s"], HAND["d"], HAND["f"]
+    F = 4
+    meta = torch.device("meta")
+
+    def lay(shape, *placements):
+        return distribute_tensor(torch.empty(shape, device=meta), dm,
+                                 list(placements), src_data_rank=None)
+
+    # y = a@w; z = y@w; del y; q = (z@w).t() + 1, n x n: at most 3 n x n
+    # live (z, z@w and q), 2 that are not the output q; 3 products, each
+    # reading 2 and writing 1 matrix, and the add reading 1 and writing 1
+    n = 1024
+    m = n * n * F
+
+    a, w = (torch.empty((n, n), device=meta) for _ in range(2))
+
+    def chain():
+        y = a @ w
+        z = y @ w
+        del y
+        return (z @ w).t() + 1
+
+    assert _counted(chain) == (3 * m, 2 * m, 3 * 2 * n ** 3,
+                               3 * 3 * m + 2 * m)
+
+    # the MLP: a layer reads its input L, makes the hidden shard H, then
+    # a pending sum L, all-reduced into the next input L; at most the
+    # input, the pending sum and the all-reduced sum live (3 L), the
+    # input, H and the pending sum (2 L + H) when the last all-reduce's
+    # result, the output, is left out
+    x = lay((b, s, d), Shard(0), Replicate())
+    w1 = lay((2, d, f), Replicate(), Shard(2))
+    w2 = lay((2, f, d), Replicate(), Shard(1))
+    L, H, W = b // 2 * s * d * F, b // 2 * s * f // 4 * F, d * f // 4 * F
+
+    def mlp():
+        h = x
+        for i in range(2):
+            h = ((h @ w1[i]) @ w2[i]).redistribute(dm, [Shard(0),
+                                                       Replicate()])
+        return h
+
+    with dryrun.GlobalFlops() as global_flops:
+        mlp()
+    got = _counted(mlp)
+    assert got == (3 * L, 2 * L + H, b * s * d * f,
+                   2 * ((L + W + H) + (H + W + L) + 2 * L))
+    # every product split over all 8 devices
+    assert 8 * got[2] == global_flops.total() == 8 * b * s * d * f
+    ref = reference()
+    # XLA adds one FLOP an all-reduced element
+    assert ref["cost/mlp"][0] == got[2] + 2 * b // 2 * s * d
+
+    # the train step: h1 = x@v1 (A), y = h1@v2, the loss, the seed; dy
+    # (G) a shard of the seed broadcast to the global batch; dv2 = h1^T dy
+    # (W, pending); dh1 = dy @ v2^T at the global batch (2 A: DTensor
+    # keeps the broadcast seed whole), its shard (A); dv1 = x^T dh1 (W);
+    # then per weight an all-reduce, a product by 0.1 and a difference.
+    # At most loss, seed, dv2, dh1 whole and shard and dv1 live, none an
+    # output
+    v1 = lay((d, f), Replicate(), Replicate()).requires_grad_()
+    v2 = lay((f, d), Replicate(), Replicate()).requires_grad_()
+    G, A, W = b // 2 * s * d * F, b // 2 * s * f * F, d * f * F
+
+    def train():
+        g = torch.autograd.grad(((x @ v1) @ v2).sum(), [v1, v2])
+        return [w - 0.1 * gw.redistribute(dm, [Replicate(), Replicate()])
+                for w, gw in zip((v1, v2), g)]
+
+    product = 2 * b // 2 * s * d * f
+    assert _counted(train) == (
+        2 * F + 2 * W + 3 * A, 2 * F + 2 * W + 3 * A, 6 * product,
+        (G + W + A) + (A + W + G) + (G + F) + 2 * F + (F + G) + (A + G + W)
+        + (F + W + 2 * A) + 2 * A + (G + A + W) + 2 * (2 * W + 2 * W + 3 * W))
+    # XLA drops the forward y (the sum's gradient needs none) and takes dh1
+    # on the shards; it counts the all-reduces' and the update's FLOPs
+    assert ref["cost/train"][0] == (6 * product - product - product
+                                    + 2 * d * f + 2 * 2 * d * f)
+
+    # per_shard: y = x@w on the batch shards (A), the loss, the seed, dy
+    # (A), dw = x^T dy (W, pending over data), dx = dy w^T (G), dw
+    # all-reduced; at most y, loss, seed, dy, dw and dx live, dx an output
+    px = x.detach().requires_grad_()
+    pw = lay((d, f), Replicate(), Replicate()).requires_grad_()
+
+    def per_shard():
+        y = sh.per_shard(lambda a, c: a @ c, (px, pw), ({0: 0, 1: 1}, {}),
+                         ({0: 0, 1: 1},))
+        return torch.autograd.grad(y.sum(), [px, pw])
+
+    assert _counted(per_shard) == (
+        2 * A + 2 * F + W + G, 2 * A + 2 * F + W, 3 * product,
+        (G + W + A) + (A + F) + 2 * F + (F + A) + (G + A + W) + (A + W + G)
+        + 2 * W)
+    # XLA drops the forward product, all-reduces dw (one FLOP an element)
+    assert ref["cost/product"][0] == 2 * product + d * f
+
+    # 32x128 @ 128x64 on a device: the product reads both, writes 32x64;
+    # the tanh reads and writes 32x64
+    a = lay((64, 128), Shard(0), Replicate())
+    c = lay((128, 256), Replicate(), Shard(1))
+    got = _counted(lambda: torch.tanh(a @ c))
+    for name, fn in (("mlp", mlp), ("train", train), ("product", per_shard)):
+        print(f"{name}: temporaries, port {_counted(fn)[1]}, reference "
+              f"{ref['cost/' + name][2]}")
+    assert got[2:] == tuple(ref["cost/tanh"][:2]) == (
+        2 * 32 * 128 * 64, (32 * 128 + 128 * 64 + 3 * 32 * 64) * F)
+
+
+def test_shard_flops_cover_traced_flops(reduced, mesh_2x4):
+    """On every reduced cell of ``MEMORY_CELLS`` (each family), rank 0's
+    FLOPs times the 8 devices are at least the FLOPs at global shapes:
+    a product that is not split over every device runs whole on some."""
+    for arch, cell in MEMORY_CELLS:
+        r = _traced(arch, cell, mesh_2x4)
+        assert 8 * r["hlo_flops"] >= r["traced_flops"] > 0, (arch, cell)
+        assert r["hlo_bytes"] > 0 and r["temp_size_in_bytes"] > 0
+        assert r["allocations"] > 0
+
+
+def test_costs_against_reference_on_one_layer_cells(reduced, mesh_2x4,
+                                                    reference, monkeypatch):
+    """The ``ONE_LAYER`` cells' FLOPs, bytes and temporaries against the
+    reference's compiled ``cost_analysis()`` and ``memory_analysis()``:
+    within ``COST_FACTOR`` either way (each ratio printed, ``pytest -s``;
+    PERF.md records them)."""
+    monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
+        get_reduced(a), n_layers=1))
+    want = reference()
+    for arch, cell in ONE_LAYER:
+        r = dryrun.trace_cell(arch, cell, mesh_2x4)
+        for key, ref in zip(("hlo_flops", "hlo_bytes", "temp_size_in_bytes"),
+                            want[f"one/{arch}/{cell}"]):
+            ratio = r[key] / ref
+            print(f"{arch} {cell} {key}: port {r[key]}, reference {ref}, "
+                  f"ratio {ratio}")
+            assert 1 / COST_FACTOR[key] <= ratio <= COST_FACTOR[key], (
+                arch, cell, key, r[key], ref)
 
 
 def test_microbatched_train_step_matches_reference(monkeypatch):
