@@ -54,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..distributed import sharding as _sh
 from ..models.params import resolve_device
 from . import ref as _ref
@@ -740,6 +741,10 @@ def moe_dispatch_combine(tokens, gates, expert_idx, n_experts: int,
     flat_e = expert_idx.reshape(-1).long()
     flat_pos = _positions_in_expert(flat_e, n_experts)
     kept = flat_pos < capacity
+    if tracing.on:
+        tracing.count("moe.assignments", t * k)
+        tracing.count("moe.kept", kept)
+        tracing.count("moe.slots", n_experts * capacity)
     slot = flat_pos.clamp(0, capacity - 1)
     gathered = tokens.repeat_interleave(k, 0)                 # [A, D]
     if impl == "kernel":

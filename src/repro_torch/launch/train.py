@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..configs import get_config, get_reduced
 from ..data.pipeline import DataConfig, Pipeline
 from ..distributed.fault_tolerance import (PreemptionGuard, SimulatedFault,
@@ -46,7 +47,8 @@ def loss_and_grads(zoo, params, batch, impl: str = "chunked"):
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
         loss = zoo.loss_fn(unflatten(params, flat), batch, impl=impl)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with tracing.span("train.backward", device=True):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     return loss.detach(), unflatten(params, grads)

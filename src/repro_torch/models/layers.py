@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed import sharding as _sh
 from ..kernels import ops as kops
@@ -265,11 +266,12 @@ def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
     q, k, v = _project_qkv(p, x, cfg, position[:, None])
     s_cache = cache_k.shape[2]
     write_pos = position % s_cache if window else position
-    ck = _cache_write(cache_k, k, write_pos)
-    cv = _cache_write(cache_v, v, write_pos)
-    lengths = torch.clamp(position + 1,
-                          max=s_cache if not window else window)
-    out = kops.decode_mha(q, ck, cv, lengths, impl="ref")
+    with tracing.span("decode.kv"):
+        ck = _cache_write(cache_k, k, write_pos)
+        cv = _cache_write(cache_v, v, write_pos)
+        lengths = torch.clamp(position + 1,
+                              max=s_cache if not window else window)
+        out = kops.decode_mha(q, ck, cv, lengths, impl="ref")
     out = out.transpose(1, 2).reshape(b, 1, -1).to(x.dtype)
     return out @ p["wo"], ck, cv
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed import sharding as _sh
 from ..kernels import ops as kops
@@ -218,4 +219,6 @@ def decode_step(params, token, cache, position, cfg: ModelConfig,
         vs.append(nv)
     x = L.apply_norm(params["ln_f"], x, cfg)
     lg = L.logits(params["embed"], x, cfg)
-    return lg, {"k": torch.stack(ks), "v": torch.stack(vs)}, position + 1
+    with tracing.span("decode.kv"):
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return lg, cache, position + 1

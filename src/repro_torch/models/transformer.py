@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed import sharding as _sh
 from ..kernels import ops as kops
@@ -158,7 +159,9 @@ def decode_step(params, token, cache, position, cfg: ModelConfig):
         vs.append(nv)
     x = L.apply_norm(params["ln_f"], x, cfg)
     lg = L.logits(params["embed"], x, cfg)
-    return lg, {"k": torch.stack(ks), "v": torch.stack(vs)}, position + 1
+    with tracing.span("decode.kv"):
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return lg, cache, position + 1
 
 
 # ---------------------------------------------------------------------------

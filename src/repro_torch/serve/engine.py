@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.params import leaves, resolve_device
 from ..models.zoo import Zoo
 
@@ -86,9 +87,12 @@ class DecodeEngine:
             req = self.queue.popleft()
             toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                    device=self.device)[None]
-            lg, cache1, pos1 = self.zoo.prefill(
-                self.params, {"tokens": toks}, self.max_len, impl=self.impl)
-            self.cache = _splice_cache(self.cache, cache1, slot)
+            with tracing.span("engine.prefill", req.rid, device=True):
+                lg, cache1, pos1 = self.zoo.prefill(
+                    self.params, {"tokens": toks}, self.max_len,
+                    impl=self.impl)
+            with tracing.span("engine.splice", req.rid, device=True):
+                self.cache = _splice_cache(self.cache, cache1, slot)
             first = int(torch.argmax(lg[0, -1]))
             self.last_tok[slot, 0] = first
             self.position[slot] = pos1[0]
@@ -102,8 +106,9 @@ class DecodeEngine:
         self.occupancy.append(len(active))
         if not active:
             return
-        lg, self.cache, self.position = self.zoo.decode_step(
-            self.params, self.last_tok, self.cache, self.position)
+        with tracing.span("engine.decode", device=True):
+            lg, self.cache, self.position = self.zoo.decode_step(
+                self.params, self.last_tok, self.cache, self.position)
         nxt = torch.argmax(lg[:, 0], -1).to(torch.int32)
         self.last_tok = nxt[:, None]
         nxt_np = nxt.cpu().numpy()
