@@ -74,8 +74,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              ``DecodeEngine`` (default ``impl="kernel"``) on 8 requests
              (prompts of 16-512 tokens): every prefill layer launches the
              flash kernel; prefill and teacher-forced decode logits match
-             the plain route (``impl="naive"``) within a bf16 tolerance;
-             the decode kernel runs over the served KV cache of every layer;
+             the plain route (``impl="naive"``, its decode attention forced
+             to the float32 reference) within a bf16 tolerance;
+             every decode step launches the decode kernel once a layer, and
+             it runs once more over the served KV cache of every layer;
              then ``repro_torch.launch.serve.main`` at the full preset.
 7. ssm_kernel — the ssm_scan kernel against its plain version (2e-5 of the
              largest |plain| value, on y and hT) over S in {1, 63, 64, 100,
@@ -150,12 +152,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              a 64-token prompt on the kernel route (36 flash launches: 12
              encoder layers non-causal, 12 decoder self-attentions causal,
              12 cross-attentions non-causal over the frames), 16 greedy
-             decode steps (cross-attention ``decode_mha(impl="ref")``, as
-             the reference); then every attention of the prefill held to
-             the plain route on the same input (8 bf16 steps); prefill ms,
-             decode ms/step, peak bytes, flash launches.
+             decode steps (the decode kernel once a decoder layer a step;
+             cross-attention ``decode_mha(impl="ref")``, as the reference);
+             then every attention of the prefill held to the plain route on
+             the same input (8 bf16 steps), and the decode kernel over each
+             decoder layer's served cache (MHA, head dim 64: the lane-group
+             instance) held to ``decode_mha(impl="ref")`` within 2 x the
+             bf16 attention tolerance; prefill ms, decode ms/step, peak
+             bytes, flash and decode launches.
 15. vlm_lm — internvl2-1b the same way: 256 patch embeddings of 1024 and a
-             512-token prompt (24 flash launches over 768 positions).
+             512-token prompt (24 flash launches over 768 positions; the
+             decode kernel's check over 24 served caches, G 7).
 16. train  — (a) ``repro_torch.launch.train.main`` at the full width of
              qwen2-0.5b: 20 steps of 8 x 1024 tokens, int8 gradient
              compression, one checkpoint at the end; every loss finite;
@@ -204,6 +211,7 @@ line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1421,21 +1429,39 @@ def _serve(zoo, params, impl=None, max_len=LM_MAX_LEN, reqs=None):
     return reqs, eng, wall
 
 
+@contextlib.contextmanager
+def _reference_decode(on: bool = True):
+    """Inside ``with``: the decode attention over a CUDA cache on the
+    float32 grouped reference (``layers._decode_route`` replaced), as the
+    plain route's; a plain CUDA cache otherwise takes the decode kernel,
+    whatever ``impl`` says."""
+    from repro_torch.models import layers as L
+    route = L._decode_route
+    if on:
+        L._decode_route = lambda cache: "ref"
+    try:
+        yield
+    finally:
+        L._decode_route = route
+
+
 def _teacher_forced(zoo, params, req):
     """Logits of both routes on one request, both fed the kernel engine's
-    tokens: prefill, then one decode step per generated token."""
+    tokens: prefill, then one decode step per generated token (the plain
+    route's decode attention on the reference)."""
     import torch
     dev = params["ln_f"]["w"].device
     out = {}
     for impl in ("kernel", "naive"):
         toks = torch.as_tensor(req.prompt, device=dev)[None]
-        lg, cache, pos = zoo.prefill(params, {"tokens": toks}, LM_MAX_LEN,
-                                     impl=impl)
-        steps = [lg[0, -1]]
-        for t in req.tokens[:-1]:
-            tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
-            lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
-            steps.append(lg[0, -1])
+        with _reference_decode(impl == "naive"):
+            lg, cache, pos = zoo.prefill(params, {"tokens": toks},
+                                         LM_MAX_LEN, impl=impl)
+            steps = [lg[0, -1]]
+            for t in req.tokens[:-1]:
+                tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
+                lg, cache, pos = zoo.decode_step(params, tok, cache, pos)
+                steps.append(lg[0, -1])
         out[impl] = torch.stack(steps).float()[:, :zoo.cfg.vocab]
     return out["kernel"], out["naive"]
 
@@ -1507,9 +1533,10 @@ def phase_lm():
     require(served["flash_attention"] == LM_REQUESTS * cfg.n_layers,
             f"flash_attention launched {served['flash_attention']} times, "
             f"want {LM_REQUESTS} x {cfg.n_layers}")
-    # the decode entry point over the served cache of every layer: the
-    # model's decode keeps impl="ref" (as the reference), so the decode
-    # kernel is reached through ops.decode_mha(impl="kernel")
+    require(served["decode_attention"] == eng.steps * cfg.n_layers,
+            f"decode_attention launched {served['decode_attention']} times, "
+            f"want {eng.steps} steps x {cfg.n_layers}")
+    # the decode entry point over the served cache of every layer
     rng = __import__("numpy").random.default_rng(SEED + 2)
     lengths = torch.clamp(eng.position, 1, LM_MAX_LEN)
     qs = [torch.from_numpy(rng.standard_normal(
@@ -1521,7 +1548,8 @@ def phase_lm():
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {**tr.executor_launches(), **_lm_launches()}
-    require(launches["decode_attention"] == cfg.n_layers,
+    require(launches["decode_attention"] - served["decode_attention"]
+            == cfg.n_layers,
             "decode_mha(impl='kernel') did not launch once per layer")
     tokens = sum(len(r.tokens) for r in reqs)
     emit({"phase": "lm", "arch": LM_ARCH, "n_params": zoo.n_params(),
@@ -1537,7 +1565,8 @@ def phase_lm():
         impl="ref").float()).abs().max())
     require(err <= ATTN_TOL["bfloat16"] * 2,
             f"decode_mha kernel vs ref on layer 0's cache: {err}")
-    n_reqs, n_eng, n_wall = _serve(zoo, params, impl="naive")
+    with _reference_decode():
+        n_reqs, n_eng, n_wall = _serve(zoo, params, impl="naive")
     worst, flips, checked = 0.0, [], 0
     worst_diff, tols = 0.0, []
     for r, n in zip(reqs, n_reqs):
@@ -2273,6 +2302,9 @@ def phase_hybrid_lm(dev):
             f"{n_groups} x {len(short)}")
     require(served_launches["rg_lru"] == 0, "the served route ran the "
             "rg_lru kernel (the reference's prefill never passes impl)")
+    require(served_launches["decode_attention"] == n_groups * eng.steps,
+            f"served decode_attention launches {served_launches}, want "
+            f"{n_groups} x {eng.steps} steps")
     long_req = reqs[-1]
     require(long_req.done and len(long_req.tokens) == LM_MAX_NEW,
             f"the {HYBRID_LONG}-token request was not served")
@@ -2295,7 +2327,7 @@ def phase_hybrid_lm(dev):
     launches = _lm_launches()
     want = {"rg_lru": n_rec * len(reqs),
             "flash_attention": 2 * n_groups * len(short),
-            "decode_attention": n_groups}
+            "decode_attention": n_groups * (eng.steps + 1)}
     for k, v in want.items():
         require(launches[k] == v, f"{k} launched {launches[k]} times on "
                 f"the path, want {v}")
@@ -2860,6 +2892,7 @@ def phase_moe_lm(dev):
     serve_peak = torch.cuda.max_memory_allocated()
     require(eng.impl == "kernel", f"DecodeEngine's default is {eng.impl}")
     served_want = {"flash_attention": cfg.n_layers * LM_REQUESTS,
+                   "decode_attention": cfg.n_layers * eng.steps,
                    "moe_dispatch": 0}
     for k, v in served_want.items():
         require(served_launches[k] == v, f"served {k} launches "
@@ -2878,7 +2911,8 @@ def phase_moe_lm(dev):
     decode_walked = sum(len(r.tokens) - 1 for r in reqs)
     want = {"moe_dispatch": cfg.n_layers * (LM_REQUESTS + decode_walked),
             "flash_attention": 2 * cfg.n_layers * LM_REQUESTS,
-            "decode_attention": cfg.n_layers}
+            "decode_attention": cfg.n_layers * (eng.steps + decode_walked
+                                                + 1)}
     for k, v in want.items():
         require(launches[k] == v, f"{k} launched {launches[k]} times on "
                 f"the path, want {v}")
@@ -3077,12 +3111,16 @@ def phase_family_lm(dev, arch: str, n_params_want: int, walk):
     (``impl="kernel"``: every attention a flash launch) and
     FAMILY_DECODE_STEPS greedy decode steps, counts at 0 just before and
     read just after; then a warm prefill's time, each layer's attentions
-    held to the plain route (``walk``), and the plain route's prefill
-    logits beside the kernel route's, reported."""
+    held to the plain route (``walk``), the decode kernel over each
+    decoder layer's served cache held to the reference
+    (``decode_mha(impl="ref")``) on random bf16 queries, and the plain
+    route's prefill logits beside the kernel route's, reported."""
     import gc
 
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.zoo import get_model
     gc.collect()                                   # the earlier weights
     torch.cuda.empty_cache()
@@ -3121,7 +3159,8 @@ def phase_family_lm(dev, arch: str, n_params_want: int, walk):
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": (cfg.enc_layers + 2 * cfg.dec_layers
                                 if cfg.family == "encdec" else cfg.n_layers),
-            "decode_attention": 0}
+            "decode_attention": FAMILY_DECODE_STEPS * (
+                cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers)}
     for k, v in want.items():
         require(launches[k] == v, f"{arch}: {k} launched {launches[k]} "
                 f"times on the path, want {v}")
@@ -3140,6 +3179,26 @@ def phase_family_lm(dev, arch: str, n_params_want: int, walk):
     torch.cuda.synchronize()
     prefill_warm_ms = (time.perf_counter() - t0) * 1e3
     worst = walk(params, cfg, batch)
+    n_dec = cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
+    lengths = torch.clamp(pos, 1, cache["k"].shape[3])
+    rng = np.random.default_rng(SEED + 20)
+    before = _lm_launches()["decode_attention"]
+    dec_errs = []
+    for i in range(n_dec):
+        q = torch.from_numpy(rng.standard_normal(
+            (FAMILY_BATCH, cfg.n_heads, 1, cfg.hd)).astype("float32")).to(
+            dev, torch.bfloat16)
+        got = ops.decode_mha(q, cache["k"][i], cache["v"][i], lengths,
+                             impl="kernel")
+        ref = ops.decode_mha(q, cache["k"][i], cache["v"][i], lengths,
+                             impl="ref")
+        dec_errs.append(float((got.float() - ref.float()).abs().max()))
+        require(dec_errs[-1] <= ATTN_TOL["bfloat16"] * 2,
+                f"{arch}: decode_mha kernel vs ref on decoder layer {i}'s "
+                f"cache: {dec_errs[-1]}")
+    require(_lm_launches()["decode_attention"] - before == n_dec,
+            f"{arch}: decode_mha(impl='kernel') did not launch once per "
+            "decoder layer")
     lg_p, _, _ = zoo.prefill(params, batch, max_len, impl="naive")
     v = cfg.vocab
     emit({"phase": phase, "arch": arch, "n_params": zoo.n_params(),
@@ -3154,12 +3213,15 @@ def phase_family_lm(dev, arch: str, n_params_want: int, walk):
           "tokens": torch.cat(tokens, 1).tolist(),
           "attn_bf16_steps": FAMILY_BF16_STEPS,
           "attn_worst_diff_over_tol": worst,
+          "decode_kernel_vs_ref": {"lengths": lengths.tolist(),
+                                   "head_dim": cfg.hd,
+                                   "max_abs_err": max(dec_errs)},
           "prefill_logits_kernel_vs_plain": float(
               (lg_k[..., :v] - lg_p[..., :v]).abs().max()),
           "prefill_max_abs_logit": float(lg_p[..., :v].abs().max()),
           "prefill_argmax_equal": bool(torch.equal(
               lg_k[..., :v].argmax(-1), lg_p[..., :v].argmax(-1)))})
-    del params, cache
+    del params, cache, q, got, ref
     return launches
 
 

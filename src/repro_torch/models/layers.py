@@ -257,9 +257,13 @@ def _windowed_attention(q, k, v, window: int):
 def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
                           position, impl="chunked", window: int = 0):
     """One-token decode. x [B, 1, D]; cache [B, Hkv, S, hd]; position [B].
-    Returns (out, new_cache_k, new_cache_v).  The attention over the cache
-    is ``decode_mha(impl="ref")`` whatever ``impl`` says, as in the
-    reference.  With ``window`` the cache is a ring: the new row goes to
+    Returns (out, new_cache_k, new_cache_v).  ``impl`` is not read: the
+    attention over the cache takes the route :func:`_decode_route` picks
+    from the cache, the hand-written ``decode_attention`` kernel on a plain
+    CUDA cache (each slot's K and V read in the cache's dtype, once, up to
+    its length), the grouped full-softmax attention in float32 that the
+    reference runs on a CPU, meta or DTensor cache.
+    With ``window`` the cache is a ring: the new row goes to
     ``position % S`` and the valid length is ``min(position + 1, window)``
     (a length past S means every row)."""
     b = x.shape[0]
@@ -271,9 +275,30 @@ def decode_attention_step(p, x, cfg: ModelConfig, cache_k, cache_v,
         cv = _cache_write(cache_v, v, write_pos)
         lengths = torch.clamp(position + 1,
                               max=s_cache if not window else window)
-        out = kops.decode_mha(q, ck, cv, lengths, impl="ref")
+        route = _decode_route(ck)
+        if tracing.on:
+            rows = b * ck.shape[1]
+            if route == "kernel":
+                tracing.count("decode.kernel_rows", rows)
+                tracing.count("decode.keys_read",
+                              lengths.clamp(max=s_cache).sum() * ck.shape[1])
+                tracing.count("decode.keys_held", rows * s_cache)
+            else:
+                tracing.count("decode.ref_rows", rows)
+        out = kops.decode_mha(q, ck, cv, lengths, impl=route)
     out = out.transpose(1, 2).reshape(b, 1, -1).to(x.dtype)
     return out @ p["wo"], ck, cv
+
+
+def _decode_route(cache) -> str:
+    """``"kernel"`` for a plain CUDA cache: the hand-written
+    ``decode_attention``, which raises on a dtype or head dim it has no
+    instance for.  ``"ref"`` for every other cache: a CPU or meta tensor,
+    and a DTensor (the dry-run and the sharded decode), whose local shards
+    the kernel cannot take as a whole."""
+    if cache.device.type == "cuda" and not _sh.is_dtensor(cache):
+        return "kernel"
+    return "ref"
 
 
 def _cache_write(cache, kv, position):

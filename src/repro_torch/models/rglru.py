@@ -268,8 +268,10 @@ def decode_rec_block(p, x, h_st, conv_st, cfg: ModelConfig):
 def decode_step(params, token, cache, position, cfg: ModelConfig):
     """One token for the whole batch. token [B, 1]; position [B].  Each
     attention block writes its ring at ``position % w`` and attends over
-    ``min(position + 1, w)`` rows (``decode_mha(impl="ref")``, as the
-    reference)."""
+    ``min(position + 1, w)`` rows, on the route
+    ``layers.decode_attention_step`` picks from the ring: the
+    ``decode_attention`` kernel on a plain CUDA tensor, the float32
+    reference (``decode_mha(impl="ref")``) otherwise."""
     x = L.embed(params["embed"], token)
     w = cache["attn_k"].shape[3]
     new = {k: [] for k in cache}

@@ -423,8 +423,11 @@ def test_cuda_attention_kernels_refuse_what_they_cannot_take(cuda_device):
 def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
     """Reduced qwen2-0.5b through ``DecodeEngine()`` on the card (its
     defaults: CUDA, ``impl="kernel"``): every prefill layer launches the
-    flash kernel once, and the tokens equal the plain route's
-    (``impl="naive"``) on the card."""
+    flash kernel once, and the tokens equal the plain prefill route's
+    (``impl="naive"``) on the card.  ``impl`` does not reach the decode
+    attention, which is the ``decode_attention`` kernel on both engines
+    (a plain CUDA cache); the near-tie test below holds it to the plain
+    decode attention."""
     from repro_torch.configs import get_reduced
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.zoo import get_model
@@ -454,52 +457,183 @@ def test_cuda_decode_engine_serves_reduced_qwen2(cuda_device):
     assert runs["kernel"][:2] == runs["naive"][:2]
 
 
+# ---------------------------------------------------------------------------
+# the served decode route: ``layers.decode_attention_step`` on a plain CUDA
+# cache launches ``decode_attention``; the grouped float32 reference (the
+# route every other cache keeps) is forced by replacing
+# ``layers._decode_route``
+# ---------------------------------------------------------------------------
+
+def _force_ref(cache):
+    return "ref"
+
+
 @pytest.mark.cuda
-def test_cuda_reduced_qwen2_routes_part_only_at_near_ties(cuda_device):
-    """Where the kernel engine's greedy tokens leave the plain engine's
-    (bf16 rounding in another order: the flash kernel's exponentials and
-    sums), the first differing step is a near tie: fed the kernel engine's
-    tokens up to that step, each route puts the two tokens' logits within 2
-    bf16 steps of each other.  Prints each such step and its margins."""
+@pytest.mark.parametrize("plain", ["naive", "ref"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
+def test_cuda_reduced_routes_part_only_at_near_ties(cuda_device, arch, plain,
+                                                    monkeypatch):
+    """``DecodeEngine`` on reduced qwen2-0.5b (G 2: the decode kernel's
+    tensor-core instance) and olmoe-1b-7b (G 1: its lane groups) in bf16,
+    the kernel route (flash in prefill; ``decode_attention`` once a layer
+    a decode step) against a plain one: the plain prefill (``"naive"``) or
+    the flash prefill (``"ref"``), with the decode attention on the plain
+    side forced to the float32 grouped reference (``layers._decode_route``
+    replaced), which launches no kernel.  Where the greedy tokens part
+    (bf16 rounding in another order), the first differing step is a near
+    tie: fed the kernel engine's tokens up to that step, each route puts
+    the two tokens' logits within 2 bf16 steps of each other.  Prints each
+    such step and its margins."""
+    import contextlib
     import math
     from repro_torch.configs import get_reduced
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import layers as L
     from repro_torch.models.zoo import get_model
     from repro_torch.serve.engine import DecodeEngine, Request
-    cfg = get_reduced("qwen2-0.5b")
+    cfg = get_reduced(arch)
     zoo = get_model(cfg)
     params = zoo.init_params(0)
+    assert params["ln_f"]["w"].dtype == torch.bfloat16
+    prefill = {"kernel": "kernel", "plain": "naive" if plain == "naive"
+               else "kernel"}
+
+    @contextlib.contextmanager
+    def route(side):
+        with monkeypatch.context() as m:
+            if side == "plain":
+                m.setattr(L, "_decode_route", _force_ref)
+            yield
+
     served = {}
-    for impl in ("kernel", "naive"):
+    for side in ("kernel", "plain"):
         rng = np.random.default_rng(0)
         reqs = [Request(rid=i, prompt=rng.integers(
             1, cfg.vocab, size=int(rng.integers(4, 17))).astype(np.int32),
             max_new=6) for i in range(5)]
-        eng = DecodeEngine(zoo, params, 3, 32, impl=impl)
+        eng = DecodeEngine(zoo, params, 3, 32, impl=prefill[side])
         for r in reqs:
             eng.submit(r)
-        eng.run_until_drained()
-        served[impl] = reqs
-    for rk, rn in zip(served["kernel"], served["naive"]):
-        first = next((i for i, (a, b) in enumerate(zip(rk.tokens, rn.tokens))
+        before = decode_attention.launches
+        with route(side):
+            eng.run_until_drained()
+        launched = decode_attention.launches - before
+        assert all(r.done for r in reqs)
+        assert launched == (cfg.n_layers * eng.steps if side == "kernel"
+                            else 0), (side, launched, eng.steps)
+        served[side] = reqs
+    for rk, rp in zip(served["kernel"], served["plain"]):
+        first = next((i for i, (a, b) in enumerate(zip(rk.tokens, rp.tokens))
                       if a != b), None)
         if first is None:
             continue
-        tk, tn = rk.tokens[first], rn.tokens[first]
-        for impl in ("kernel", "naive"):
+        tk, tp = rk.tokens[first], rp.tokens[first]
+        for side in ("kernel", "plain"):
             toks = torch.as_tensor(rk.prompt, device=cuda_device)[None]
-            lg, cache, pos = zoo.prefill(params, {"tokens": toks}, 32,
-                                         impl=impl)
-            for t in rk.tokens[:first]:
-                lg, cache, pos = zoo.decode_step(params, torch.tensor(
-                    [[t]], dtype=torch.int32, device=cuda_device), cache,
-                    pos)
+            with route(side):
+                lg, cache, pos = zoo.prefill(params, {"tokens": toks}, 32,
+                                             impl=prefill[side])
+                for t in rk.tokens[:first]:
+                    lg, cache, pos = zoo.decode_step(params, torch.tensor(
+                        [[t]], dtype=torch.int32, device=cuda_device),
+                        cache, pos)
             x = lg[0, -1, :cfg.vocab].float()
             step = 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
-            margin = abs(float(x[tk]) - float(x[tn])) / step
-            print(f"rid {rk.rid} step {first}: kernel token {tk}, plain "
-                  f"token {tn}; {impl} route logits {float(x[tk])}, "
-                  f"{float(x[tn])}: {margin} bf16 steps of {step}")
-            assert margin <= 2, (rk.rid, first, impl, margin)
+            margin = abs(float(x[tk]) - float(x[tp])) / step
+            print(f"{arch} rid {rk.rid} step {first}: kernel token {tk}, "
+                  f"plain token {tp}; {side} route logits {float(x[tk])}, "
+                  f"{float(x[tp])}: {margin} bf16 steps of {step}")
+            assert margin <= 2, (arch, plain, rk.rid, first, side, margin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(14, 2, 64), (16, 16, 128)])
+def test_cuda_decode_kernel_route_on_a_ragged_cache(cuda_device, hq, hkv, d,
+                                                    monkeypatch):
+    """qwen2-0.5b's heads (G 7, head dim 64) and olmoe-1b-7b's (G 1, head
+    dim 128) over a 1000-row bf16 cache of 4 slots.  ``decode_mha``'s
+    kernel route at lengths 1, 500, S and past S is within TOL (bf16) of
+    ``_grouped_ref``'s (``decode_mha(impl="ref")``); one layer's
+    ``decode_attention_step`` at positions 0, 499, S - 1 and past S (a
+    write there goes to the last row, the length is S) launches once and
+    is within 2e-2 of its largest value of the reference route's."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(d)
+    b, s = 4, 1000
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+
+    q, k, v = t(b, hq, 1, d), t(b, hkv, s, d), t(b, hkv, s, d)
+    lengths = torch.tensor([1, 500, s, s + 37], dtype=torch.int32,
+                           device=cuda_device)
+    before = decode_attention.launches
+    got = ops.decode_mha(q, k, v, lengths, impl="kernel")
+    assert decode_attention.launches == before + 1
+    want = ops.decode_mha(q, k, v, lengths, impl="ref")
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    cfg = ModelConfig(name="ragged", family="dense", d_model=hq * d,
+                      n_layers=1, n_heads=hq, n_kv_heads=hkv, d_ff=64,
+                      vocab=64)
+    wd = hq * d
+    p = {"wq": t(wd, hq * d, scale=wd ** -0.5),
+         "wk": t(wd, hkv * d, scale=wd ** -0.5),
+         "wv": t(wd, hkv * d, scale=wd ** -0.5),
+         "wo": t(hq * d, wd, scale=wd ** -0.5)}
+    x = t(b, 1, wd)
+    position = torch.tensor([0, 499, s - 1, s + 36], dtype=torch.int32,
+                            device=cuda_device)
+    before = decode_attention.launches
+    got, gk, gv = L.decode_attention_step(p, x, cfg, k, v, position)
+    assert decode_attention.launches == before + 1
+    monkeypatch.setattr(L, "_decode_route", _force_ref)
+    want, wk, wv = L.decode_attention_step(p, x, cfg, k, v, position)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_decode_counters_read_the_live_keys(cuda_device):
+    """One decode step of reduced qwen2-0.5b over a 64-row cache at
+    positions 0, 10, 63 and 100: every layer's kv rows on the kernel,
+    ``decode.keys_read / decode.keys_held`` = sum of min(pos + 1, S) over
+    (B x S), and no reference row."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.zoo import get_model
+    zoo = get_model(get_reduced("qwen2-0.5b"))
+    cfg = zoo.cfg
+    params = zoo.init_params(0)
+    b, s = 4, 64
+    position = torch.tensor([0, 10, 63, 100], dtype=torch.int32,
+                            device=cuda_device)
+    token = torch.tensor([[3], [5], [7], [9]], dtype=torch.int32,
+                         device=cuda_device)
+    cache = zoo.init_cache(b, s)
+    tracing.disable()
+    tracing.drain()
+    tracing.enable()
+    try:
+        zoo.decode_step(params, token, cache, position)
+        got = tracing.drain()["counters"]
+    finally:
+        tracing.disable()
+        tracing.drain()
+    c = {k[0]: v for k, v in got.items() if k[1] == "decode.kv"}
+    rows = cfg.n_layers * b * cfg.n_kv_heads
+    assert set(c) == {"decode.kernel_rows", "decode.keys_read",
+                      "decode.keys_held"}
+    assert c["decode.kernel_rows"] == rows
+    assert c["decode.keys_held"] == rows * s
+    live = sum(min(p + 1, s) for p in (0, 10, 63, 100))
+    assert c["decode.keys_read"] / c["decode.keys_held"] == live / (b * s)
 
 
 # ---------------------------------------------------------------------------

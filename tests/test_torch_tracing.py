@@ -6,7 +6,8 @@ their parents' ids and request ids, counters split by the innermost span;
 and a train step dispatch exactly the ATen ops they dispatched before the
 sites were added (``PARENT_OPS``, counted under a ``TorchDispatchMode`` on
 the tree before them), served tokens are the same on and off, the spans
-and counters an engine records, ``moe.kept`` against a hand count, and one
+and counters an engine records (on the CPU the decode attention counts
+reference rows only), ``moe.kept`` against a hand count, and one
 ``train.backward`` a train step.
 """
 import collections
@@ -258,10 +259,13 @@ def test_engine_spans_and_counters(kind):
     assert set(by) == {"engine.prefill", "engine.splice", "engine.decode",
                        "decode.kv"}
     c = got["counters"]
-    if kind == "dense":
-        assert c == {}
-        return
     cfg = eng.zoo.cfg
+    # on the CPU every layer's decode attention takes the reference route
+    ref_rows = {("decode.ref_rows", "decode.kv"):
+                n_layers * eng.steps * eng.b * cfg.n_kv_heads}
+    if kind == "dense":
+        assert c == ref_rows
+        return
     prompt = sum(len(r.prompt) for r in reqs)
     assert c[("moe.assignments", "engine.prefill")] == \
         n_layers * prompt * cfg.top_k
@@ -275,7 +279,9 @@ def test_engine_spans_and_counters(kind):
         assert 0 < c[("moe.kept", phase)] <= c[("moe.assignments", phase)]
     assert set(c) == {(n, p) for n in ("moe.assignments", "moe.kept",
                                        "moe.slots")
-                      for p in ("engine.prefill", "engine.decode")}
+                      for p in ("engine.prefill", "engine.decode")} | set(
+        ref_rows)
+    assert all(c[k] == v for k, v in ref_rows.items())
 
 
 def test_moe_kept_counts_by_hand():
